@@ -11,6 +11,11 @@ class's contiguous slice of the batch: ``ctx.x`` is the ``[count]`` tensor of
 the class's x values, ``ctx.mouse_x`` a 0-dim tensor, and the tick returns
 ``[count]`` tensors (or scalars, broadcast). Ticks are written in torch.
 
+For position residency the module also ports the layout-evaluated ticks
+(behavior.py:387-522): :class:`ForceTickCtx`, :func:`probe_layout_safe` and
+:func:`eval_layout_forces`, which runs a layout-safe tick once over the
+flattened solver layout instead of ``vmap``-ing it over slots.
+
 Not ported yet, and refused with ``NotImplementedError``: neighbour views
 (``uses_neighbors`` ticks, ROADMAP slice C item 11), the ``"emit"`` tick
 key (particles, slice C item 14) and custom components.
@@ -299,6 +304,144 @@ def run_logic_phase(
     if despawn is not None:
         world = apply_despawn_mask(world, despawn)
     return world
+
+
+class NotLayoutSafe(Exception):
+    """Raised by :class:`ForceTickCtx` when a tick touches state that does
+    not exist in the solver's position layout (neighbours, other
+    components, the world): the class then disqualifies from
+    ``physics.position_residency`` and the scatter-per-frame path runs."""
+
+
+#: self-field paths a layout-evaluated tick may read (present in the
+#: resident layout, or zero at tick time: the Verlet zeroes ax/ay every
+#: frame, physics_worker.js:240-316)
+_LAYOUT_READABLE = {
+    "transform.x", "transform.y", "rigid_body.ax", "rigid_body.ay",
+}
+#: paths a layout-evaluated tick may write (forces consumed by the Verlet)
+LAYOUT_WRITABLE = {"rigid_body.ax", "rigid_body.ay"}
+
+
+class ForceTickCtx:
+    """The TickCtx stand-in for evaluating a tick over SOLVER LAYOUT slots
+    (``physics.position_residency``): exactly the state that exists per
+    slot -- id, position, zeroed accelerations, the input snapshot, config
+    -- and :class:`NotLayoutSafe` on anything else. ``i``, ``x`` and ``y``
+    are one batch: the flattened layout (ids decoded from the meta) or, for
+    the probe, 0-dim tensors."""
+
+    __slots__ = ("i", "_x", "_y", "inputs", "dt_ratio", "config")
+
+    def __init__(self, i, x, y, inputs: InputState, dt_ratio, config: EngineConfig):
+        self.i = i
+        self._x = x
+        self._y = y
+        self.inputs = inputs
+        self.dt_ratio = dt_ratio
+        self.config = config
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=self._x.device)
+
+    def field(self, path: str) -> torch.Tensor:
+        path = FIELD_ALIASES.get(path, path)
+        if path == "transform.x":
+            return self._x
+        if path == "transform.y":
+            return self._y
+        if path in ("rigid_body.ax", "rigid_body.ay"):
+            return self._zero()
+        raise NotLayoutSafe(path)
+
+    @property
+    def x(self): return self._x
+    @property
+    def y(self): return self._y
+    @property
+    def ax(self): return self._zero()
+    @property
+    def ay(self): return self._zero()
+
+    def __getattr__(self, name):  # any other accessor disqualifies
+        raise NotLayoutSafe(name)
+
+    @property
+    def mouse_x(self): return self.inputs.mouse_x
+    @property
+    def mouse_y(self): return self.inputs.mouse_y
+    @property
+    def mouse_down(self): return self.inputs.mouse_buttons[0]
+
+    def key(self, name: str) -> torch.Tensor:
+        return self.inputs.keys[key_index(name)]
+
+
+def _tick_fn(klass: type):
+    tick = getattr(klass, "tick", None)
+    return tick.__func__ if isinstance(tick, (staticmethod, classmethod)) else tick
+
+
+def probe_layout_safe(klass: type, cfg: EngineConfig) -> bool:
+    """Decide at plan time whether a class's tick can evaluate in solver
+    layout space: it reads only what :class:`ForceTickCtx` exposes and
+    writes only rigid_body.ax/ay (no despawn or other side effects). The
+    tick is called once on 0-dim CPU tensors; any exception makes it unsafe,
+    as the reference's abstract probe does."""
+    if getattr(klass, "tick", None) is None:
+        return True  # nothing to evaluate: contributes zero force
+    if getattr(klass, "uses_neighbors", True):
+        return False
+    from .inputs import InputController
+
+    ctx = ForceTickCtx(
+        torch.zeros((), dtype=torch.int32), torch.zeros(()), torch.zeros(()),
+        InputController().snapshot("cpu"), cfg.dt_ratio, cfg,
+    )
+    try:
+        out = _tick_fn(klass)(ctx) or {}
+    except Exception:
+        return False
+    keys = {FIELD_ALIASES.get(k, k) for k in out}
+    return keys <= LAYOUT_WRITABLE
+
+
+def eval_layout_forces(
+    force_specs: Sequence[Tuple[Callable, int, int]],
+    gx: torch.Tensor,
+    gy: torch.Tensor,
+    gid: torch.Tensor,
+    inputs: InputState,
+    cfg: EngineConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate layout-safe tick forces directly over layout slots.
+    ``force_specs``: (tick_fn, start, count) per qualified ticking class.
+    Each tick runs once on the flattened layout as one batch, with ``i`` the
+    decoded gid, and its result is merged under the class's gid-range mask.
+    Empty slots decode to gid 0 and never consume a force (the Verlet masks
+    by the moving flag). Elementwise, so bit-exact with the entity-order
+    evaluation of the same tick."""
+    shape = gx.shape
+    axf = torch.zeros(gx.numel(), dtype=torch.float32, device=gx.device)
+    ayf = torch.zeros_like(axf)
+    if not force_specs:
+        return axf.view(shape), ayf.view(shape)
+    fx, fy, fid = gx.reshape(-1), gy.reshape(-1), gid.reshape(-1)
+    for tick_fn, start, count in force_specs:
+        out = tick_fn(ForceTickCtx(fid, fx, fy, inputs, cfg.dt_ratio, cfg)) or {}
+        norm = {FIELD_ALIASES.get(k, k): v for k, v in out.items()}
+
+        def value(path):
+            v = norm.get(path)
+            if v is None:
+                return torch.zeros_like(fx)
+            v = torch.as_tensor(v, device=gx.device)
+            return torch.broadcast_to(v.to(torch.float32), fx.shape)
+
+        m = (fid >= start) & (fid < start + count)
+        axf = torch.where(m, value("rigid_body.ax"), axf)
+        ayf = torch.where(m, value("rigid_body.ay"), ayf)
+    return axf.view(shape), ayf.view(shape)
 
 
 def apply_despawn_mask(world: World, mask: torch.Tensor) -> World:

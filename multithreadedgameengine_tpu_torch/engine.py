@@ -12,15 +12,24 @@ neighbour lists, engine.py:1460-1824), run eagerly:
 1. ``apply_inputs`` writes the mouse as entity 0;
 2. ``behavior.run_logic_phase`` runs the ticks;
 3. ``render.extract.advance_animation``;
-4. ``ops.physics.physics_step``: Verlet move, the grid solver with the K1
-   pair kernel, derived properties;
+4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver,
+   derived properties), or with position residency
+   ``ops.physics_grid.resident_persistent_step`` then ``update_derived``;
 5. ``ops.culling.update_entity_visibility`` and the step metrics.
+
+The plan (``_build_plan``, the reference's ``_build_step``) resolves what
+the reference resolves before tracing: the solver geometry; solver "auto"
+as "pallas", the resident solver; the pair kernel (K1, or K2 where the
+reference's gate picks it, ``physics_grid.use_symmetric``); the bin and
+attribute caches of ``rebin_interval > 1``; position residency; the banded
+boundary; and whether ``step(n)`` runs the lazy-readback chunk.
 
 ``device`` is required: ``"cuda"`` runs the CUDA kernels, ``"cpu"`` their
 plain PyTorch versions. There is no automatic choice.
 
-Configurations outside the ported slice raise ``NotImplementedError`` naming
-their ROADMAP item (see ``_check_supported``); nothing is silently ignored.
+Configurations outside the ported slices raise ``NotImplementedError``
+naming their ROADMAP item (see ``_check_supported``); nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from .behavior import (
     FIELD_ALIASES,
     SetupCtx,
     SpawnCtx,
+    _tick_fn,
+    probe_layout_safe,
     read_field,
     run_logic_phase,
     write_field,
@@ -48,8 +59,16 @@ from .components import Collider, MouseComponent
 from .config import EngineConfig, make_config
 from .inputs import InputController, InputState
 from .ops.culling import update_entity_visibility
-from .ops.physics import physics_step
-from .ops.physics_grid import solver_geometry
+from .ops.physics import physics_step, update_derived
+from .ops.physics_grid import (
+    bins_expired,
+    layout_shape,
+    resident_lazy_frame,
+    resident_persistent_step,
+    resident_sync_entity,
+    solver_geometry,
+    use_symmetric,
+)
 from .render.extract import advance_animation
 from .rng import Mulberry32
 from .state import EntityPool, World, make_world, scatter_fields
@@ -64,13 +83,6 @@ def _check_supported(cfg: EngineConfig) -> None:
     ph, lg = cfg.physics, cfg.logic
     if ph.solver == "neighbors":
         _refuse("physics.solver='neighbors'", "slice C, item 12")
-    if ph.solver_predicated == "on":
-        _refuse("physics.solver_predicated='on' (the predicated kernel K2)",
-                "TPU kernels, K2")
-    if ph.rebin_interval > 1:
-        _refuse("physics.rebin_interval > 1 (the rebin cache)", "slice B, item 10")
-    if ph.position_residency == "on":
-        _refuse("physics.position_residency='on'", "slice B, item 10")
     if lg.collision_events or lg.screen_events:
         _refuse("logic.collision_events / logic.screen_events", "slice C, item 13")
     if cfg.particle.max_particles > 0 or cfg.particle.decals:
@@ -135,6 +147,15 @@ class StepPlan:
     solver_geom: Any
     type_ranges: Tuple[Tuple[type, int, int], ...]
     frame_counts: torch.Tensor
+    #: the pair kernel: K2 (pair_pass_symmetric) when True, else K1
+    symmetric: bool = False
+    #: position residency: (tick_fn, start, count) of each ticking class
+    #: evaluated in layout space, and the host-written rows pinned each frame
+    residency: bool = False
+    force_specs: Tuple[Tuple[Any, int, int], ...] = ()
+    pin_rows: Tuple[int, ...] = ()
+    #: > 0: the banded boundary, sized for this per-frame displacement
+    band_vel_bound: float = 0.0
 
 
 class Engine:
@@ -189,9 +210,14 @@ class Engine:
         # larger later write forces a re-plan
         self._max_radius = 0.0
         self._solver_radius_bound = 0.0
+        # largest host-written rigid_body.max_vel (the Verlet per-axis clamp;
+        # <= 0 falls back to 100): sizes the banded boundary's drift bound
+        self._max_vel_seen = 100.0
         self.metrics: Dict[str, torch.Tensor] = {}
         self._step_seconds: deque = deque(maxlen=60)
         self.total_steps = 0
+        # frames that step(n)'s lazy chunk ran without the entity read-back
+        self.lazy_frames = 0
 
         # Mouse registered first so entity index 0 is the mouse
         self.register_entity_class(Mouse, 1)
@@ -266,6 +292,14 @@ class Engine:
             raise RuntimeError("already initialized")
         n = max(1, self.entity_count)
         world = make_world(n, self.device)
+        # grid-solver bin cache (physics.rebin_interval): installed at init,
+        # stamp -1 = never binned
+        if self.config.physics.rebin_interval > 1:
+            world = world.replace(
+                solver_flat=torch.zeros((n,), dtype=torch.int64, device=self.device),
+                solver_in_grid=torch.zeros((n,), dtype=torch.bool, device=self.device),
+                solver_bin_step=-1,
+            )
         # entityType for every slot, active or not (gameEngine.js:778-791)
         et = np.zeros((n,), np.int32)
         for reg in self.classes.values():
@@ -323,6 +357,8 @@ class Engine:
                 updates.get("rigid_body.vy", 0.0)
             )
         updates["transform.active"] = True
+        # the solver bounds see a queued spawn at once (engine.py:664)
+        self._track_radius(updates)
         self._pending_ops.append(("spawn", i, updates))
         return i
 
@@ -484,14 +520,20 @@ class Engine:
         """Scatter {path: (indices, values)} into the world. Values travel as
         float32, as in the reference (every value the control plane writes is
         float32-exact), and are cast to the field's dtype on the device."""
-        if "collider.radius" in columns:
-            self._track_radius({"collider.radius": columns["collider.radius"][1]})
+        for path in ("collider.radius", "rigid_body.max_vel"):
+            if path in columns:
+                self._track_radius({path: columns[path][1]})
         for path, (np_idx, np_vals) in columns.items():
             comp_name, _, field = path.partition(".")
             idx = torch.from_numpy(np.asarray(np_idx, np.int64)).to(self.device)
             vals = torch.from_numpy(np.asarray(np_vals).astype(np.float32)).to(self.device)
             comp = scatter_fields(getattr(world, comp_name), idx, {field: vals})
             world = world.replace(**{comp_name: comp})
+        # host writes invalidate the solver's bin cache: the next frame
+        # re-bins, so despawns drop out of the pair search at once and
+        # spawns collide from their first frame (engine.py:1093-1102)
+        if columns and world.solver_bin_step is not None:
+            world = world.replace(solver_bin_step=-1)
         return world
 
     def _track_radius(self, updates: Dict[str, Any]) -> None:
@@ -502,15 +544,20 @@ class Engine:
                 self._max_radius = r
                 if self._plan is not None and r > self._solver_radius_bound:
                     self._plan = None  # re-derive the solver geometry
+        v = updates.get("rigid_body.max_vel")
+        if v is not None:
+            v = float(np.max(np.asarray(v)))
+            if v > self._max_vel_seen:
+                self._max_vel_seen = v
+                if (self._plan is not None and self._plan.band_vel_bound > 0.0
+                        and v > self._plan.band_vel_bound):
+                    self._plan = None  # re-derive the boundary band
 
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
     def _solver_plan(self, cfg: EngineConfig):
-        """The grid solver's geometry from the registered radii. The
-        reference's ``auto`` gate also picks its pair kernel here (K1, or K2
-        on wide layouts); the port runs K1 at every layout until K2 is ported
-        and measured on the H100."""
+        """The grid solver's geometry from the registered radii."""
         radii = self.world.collider.radius.cpu().numpy()
         r_world = float(radii.max()) if radii.size else 0.0
         max_r = max(self._max_radius, r_world)
@@ -523,19 +570,92 @@ class Engine:
         self._solver_radius_bound = max_r
         return solver_geometry(cfg, max_r, mean_radius=mean_r)
 
+    def _residency_specs(self, cfg: EngineConfig):
+        """The ticking classes' (tick_fn, start, count) when every tick is
+        layout-safe, else None (engine.py:1301-1325). Raises ValueError for
+        an unsafe tick under ``position_residency="on"``."""
+        specs = []
+        for reg in self.classes.values():
+            if reg.count == 0 or getattr(reg.cls, "tick", None) is None:
+                continue
+            if not probe_layout_safe(reg.cls, cfg):
+                if cfg.physics.position_residency == "on":
+                    raise ValueError(
+                        "physics.position_residency='on' but "
+                        f"{reg.cls.__name__}.tick is not layout-safe (it reads "
+                        "beyond self x/y/ax/ay + inputs, or writes beyond "
+                        "rigid_body.ax/ay)"
+                    )
+                return None
+            specs.append((_tick_fn(reg.cls), reg.start_index, reg.count))
+        return tuple(specs)
+
     def _build_plan(self) -> StepPlan:
-        """What the reference's ``_build_step`` resolves before tracing."""
+        """What the reference's ``_build_step`` resolves before tracing
+        (engine.py:1169-1354): the geometry; solver "auto" as "pallas" (the
+        resident solver, as the reference picks it on its accelerator); the
+        pair kernel; the solver caches, installed at the layout's shape with
+        their stamps reset so the next frame rebins; residency; the band."""
         cfg = self.config
+        if cfg.physics.solver == "auto":
+            cfg = dataclasses.replace(
+                cfg, physics=dataclasses.replace(cfg.physics, solver="pallas"))
+            self.config = cfg
+        ph = cfg.physics
+        dev = self.device
+        n = self.world.n_entities
+        w = self.world
+        if ph.rebin_interval > 1:
+            if w.solver_flat is None:
+                w = w.replace(
+                    solver_flat=torch.zeros((n,), dtype=torch.int64, device=dev),
+                    solver_in_grid=torch.zeros((n,), dtype=torch.bool, device=dev),
+                )
+            w = w.replace(solver_bin_step=-1)
+        geom = self._solver_plan(cfg)
+        shape = layout_shape(geom)
+        pallas = ph.solver == "pallas"
+
+        def layouts(dtype, names):
+            return {k: torch.zeros(shape, dtype=dtype, device=dev) for k in names}
+
+        # the static-attribute layout cache rides the bin cache
+        if ph.rebin_interval > 1 and pallas and (
+                w.solver_grad is None or tuple(w.solver_grad.shape) != shape):
+            w = w.replace(**layouts(torch.float32, ("solver_grad",)),
+                          **layouts(torch.int32, ("solver_meta",)))
+
+        specs = None
+        if ph.position_residency != "off" and pallas and ph.rebin_interval > 1:
+            specs = self._residency_specs(cfg)
+        pin_rows: Tuple[int, ...] = ()
+        if specs is not None:
+            if "Mouse" in self.classes and self.classes["Mouse"].count > 0:
+                pin_rows = (0,)  # apply_inputs writes entity 0 every frame
+            if w.solver_x is None or tuple(w.solver_x.shape) != shape:
+                w = w.replace(**layouts(torch.float32, (
+                    "solver_x", "solver_y", "solver_px", "solver_py", "solver_maxv")))
+            w = w.replace(solver_pos_step=-1)
+        self.world = w
+        residency = specs is not None
         return StepPlan(
             cfg=cfg,
-            solver_geom=self._solver_plan(cfg),
+            solver_geom=geom,
             type_ranges=tuple(
                 (reg.cls, reg.start_index, reg.count)
                 for reg in self.classes.values() if reg.count > 0
             ),
             # no sprite sheets are registered in the port (rendering is not
             # ported), so every animation has one frame
-            frame_counts=torch.ones((1, 1), dtype=torch.int32, device=self.device),
+            frame_counts=torch.ones((1, 1), dtype=torch.int32, device=dev),
+            symmetric=use_symmetric(cfg, geom),
+            residency=residency,
+            force_specs=specs or (),
+            pin_rows=pin_rows,
+            # the Verlet clamp bounds per-frame drift; a later host write of
+            # a larger max_vel re-plans (_track_radius)
+            band_vel_bound=(max(100.0, self._max_vel_seen)
+                            if residency and ph.boundary_band == "auto" else 0.0),
         )
 
     def _one_step(self, world: World, inputs: InputState) -> Tuple[World, Dict[str, torch.Tensor]]:
@@ -544,7 +664,15 @@ class Engine:
         world = apply_inputs(world, inputs)
         world = run_logic_phase(world, inputs, cfg, plan.type_ranges)
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
-        world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom)
+        if plan.residency:
+            world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
+                world, cfg, plan.solver_geom, inputs, plan.force_specs,
+                cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
+            )
+            world = update_derived(world, cfg)
+        else:
+            world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom)
+            band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
         world = update_entity_visibility(world, cfg, inputs)
         world = world.replace(step_count=world.step_count + 1)
         t = world.transform
@@ -557,25 +685,67 @@ class Engine:
             "nonfinite_count": torch.sum(
                 t.active & ~(torch.isfinite(t.x) & torch.isfinite(t.y)), dtype=torch.int32
             ),
+            # banded-boundary assumption monitor: entities that out-drifted
+            # the px/py bounce band (0 in healthy runs)
+            "boundary_band_drift": band_drift,
         }
         return world, metrics
+
+    def _lazy_frame(self, world: World, inputs: InputState):
+        """A mid-chunk frame of the lazy-readback chunk (engine.py:1877-1888):
+        inputs, animation and the layout-only resident frame."""
+        plan = self._plan
+        cfg = plan.cfg
+        world = apply_inputs(world, inputs)
+        world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
+        return resident_lazy_frame(
+            world, cfg, plan.solver_geom, inputs, plan.force_specs,
+            cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
+        )
 
     def step(self, n: int = 1, block: bool = False) -> Dict[str, torch.Tensor]:
         """Advance ``n`` frames with the inputs of this call (the reference
         freezes the input snapshot for a chunk of frames the same way).
         Queued spawns/despawns apply first. Returns the last frame's metrics
-        as device tensors; ``block=True`` waits for the device."""
+        as device tensors; ``block=True`` waits for the device.
+
+        With position residency and ``n > 1`` this is the reference's
+        lazy-readback chunk (engine.py:1833-1899): a frame is full (entity
+        order synced from the layout, then the eager frame) when it is the
+        call's last, the layout is stale or the bins have expired; every
+        other frame runs in the layout alone. ``boundary_band_drift`` is then
+        the chunk's maximum. Bit-exact with ``n`` single steps."""
         self._require_init()
         if n <= 0:
             return self.metrics
-        self._flush_pending()  # may invalidate the plan (a larger radius)
+        # the plan is built before the queued writes land, as the reference
+        # builds its step before flushing (engine.py:2555-2558): the first
+        # step's geometry sees the spawns' radii only through _max_radius
         if self._plan is None:
             self._plan = self._build_plan()
+        self._flush_pending()
+        if self._plan is None:  # the flush wrote a radius above the bound
+            self._plan = self._build_plan()
+        plan = self._plan
         inputs = self.input.snapshot(self.device)
         t0 = time.perf_counter()
         world = self.world
-        for _ in range(n):
-            world, metrics = self._one_step(world, inputs)
+        if plan.residency and n > 1:
+            interval = max(2, plan.cfg.physics.rebin_interval)
+            drift = torch.zeros((), dtype=torch.int32, device=self.device)
+            for i in range(n):
+                if (i == n - 1 or world.solver_pos_step != world.step_count
+                        or bins_expired(world, interval)):
+                    world, metrics = self._one_step(resident_sync_entity(world), inputs)
+                    drift = torch.maximum(metrics["boundary_band_drift"], drift)
+                    metrics["boundary_band_drift"] = drift
+                else:
+                    world, frame_drift = self._lazy_frame(world, inputs)
+                    drift = torch.maximum(drift, frame_drift)
+                    self.lazy_frames += 1
+        else:
+            for _ in range(n):
+                world, metrics = self._one_step(world, inputs)
         self.world, self.metrics = world, metrics
         if block:
             self.sync()
@@ -615,7 +785,9 @@ class Engine:
     # snapshot / restore
     # ------------------------------------------------------------------
     def snapshot(self) -> World:
-        """A copy of the world on the host."""
+        """A copy of the world on the host. With position residency it needs
+        no sync: every full frame keeps entity order current, and a step()
+        call always ends with a full frame."""
         self._flush_pending()
         return self.world.map_tensors(lambda a: a.to("cpu", copy=True))
 

@@ -39,16 +39,54 @@ def config_from(cfg) -> EngineConfig:
     })
 
 
-def world_from_jax(np_world, device) -> World:
+#: the reference layout's row halo (pallas_kernels.py:35): its grid row r
+#: sits at layout row REF_HALO + r, where the port's sits at row 1 + r
+REF_HALO = 8
+
+_LAYOUT_LEAVES = ("solver_grad", "solver_meta", "solver_maxv",
+                  "solver_x", "solver_y", "solver_px", "solver_py")
+
+
+def _layout_from_reference(a: np.ndarray, geom) -> np.ndarray:
+    """A reference layout ``[cap, rows_buf, Cp]`` cut to the port's
+    ``[cap, R+2, C+2]``: reference row ``REF_HALO + r`` becomes row
+    ``1 + r`` and lane ``1 + c`` column ``1 + c``, with the empty border."""
+    R, C = geom.rows, geom.cols
+    return np.ascontiguousarray(a[:, REF_HALO - 1:REF_HALO + R + 1, :C + 2])
+
+
+def _flat_from_reference(flat: np.ndarray, in_grid: np.ndarray, ref_shape, geom) -> np.ndarray:
+    """The reference's flat slot indices in the port's layout; an entity
+    not in the grid gets the port's spare index ``cap*(R+2)*(C+2)``.
+    ``ref_shape`` is the resident layout's ``[cap, rows_buf, Cp]``, or None
+    for the "grid" solver's ``[R+2, C+2, cap]`` encoding."""
+    flat = flat.astype(np.int64)
+    rows, cols = geom.rows + 2, geom.cols + 2
+    if ref_shape is None:
+        cell, rank = np.divmod(flat, geom.capacity)
+        row, col = np.divmod(cell, cols)
+    else:
+        _cap, rows_buf, cp = ref_shape
+        rank, rest = np.divmod(flat, rows_buf * cp)
+        row, col = np.divmod(rest, cp)
+        row = row - REF_HALO + 1
+    port = (rank * rows + row) * cols + col
+    return np.where(in_grid, port, geom.capacity * rows * cols)
+
+
+def world_from_jax(np_world, device, geom=None) -> World:
     """The port's World from a reference World whose leaves are numpy.
 
     Every field of the five ported components is copied with the port's
-    dtype (uint32 tints become int64, see ``components``). Reference state
-    the port does not run yet (the solver caches of ``rebin_interval > 1``,
-    the screen-event tables, particles, custom components) must be absent;
-    the event and decal tables of a world without those features are
-    placeholders and are left behind."""
-    unported = [leaf for leaf in ("solver_flat", "solver_x", "prev_onscreen")
+    dtype (uint32 tints become int64, see ``components``). The solver caches
+    (bin cache, attribute and position layouts, their stamps) are converted
+    to the port's layout when present, which needs the solver geometry
+    ``geom`` of the run (a ``GridGeom``): so a reference world stepped
+    partway between rebins continues in the port. Reference state the port
+    does not run yet (the screen-event tables, particles, custom components)
+    must be absent; the event and decal tables of a world without those
+    features are placeholders and are left behind."""
+    unported = [leaf for leaf in ("prev_onscreen",)
                 if getattr(np_world, leaf, None) is not None]
     if np.asarray(np_world.particles.x).size:
         unported.append("particles")
@@ -68,4 +106,24 @@ def world_from_jax(np_world, device) -> World:
             ).to(device)
             for field, dtype in cls.DTYPES.items()
         })
-    return World(**comps, step_count=int(np.asarray(np_world.step_count)))
+    solver = {}
+    if getattr(np_world, "solver_flat", None) is not None:
+        if geom is None:
+            raise ValueError("world_from_jax: the world carries solver caches; "
+                             "pass the solver geometry (geom=)")
+        in_grid = np.asarray(np_world.solver_in_grid, bool)
+        # the resident layout's shape, or None: bins of the "grid" solver
+        ref_shape = next((np.asarray(getattr(np_world, k)).shape for k in _LAYOUT_LEAVES
+                          if getattr(np_world, k, None) is not None), None)
+        solver["solver_flat"] = torch.from_numpy(_flat_from_reference(
+            np.asarray(np_world.solver_flat), in_grid, ref_shape, geom)).to(device)
+        solver["solver_in_grid"] = torch.from_numpy(in_grid.copy()).to(device)
+        solver["solver_bin_step"] = int(np.asarray(np_world.solver_bin_step))
+        for k in _LAYOUT_LEAVES:
+            a = getattr(np_world, k, None)
+            if a is not None:
+                solver[k] = torch.from_numpy(
+                    _layout_from_reference(np.asarray(a), geom)).to(device)
+        if getattr(np_world, "solver_pos_step", None) is not None:
+            solver["solver_pos_step"] = int(np.asarray(np_world.solver_pos_step))
+    return World(**comps, step_count=int(np.asarray(np_world.step_count)), **solver)

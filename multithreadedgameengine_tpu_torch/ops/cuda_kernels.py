@@ -1,20 +1,24 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
-K1, the two-sided resident pair pass, replaces the TPU kernel
-``multithreadedgameengine_tpu/ops/pallas_kernels.py::pair_pass_resident``
-with ``symmetric=False``. The CUDA source is ``csrc/pair_pass_resident.cu``;
-``ops/_build.py`` compiles it with nvcc at first use and binds it with
-ctypes.
+Both replace the TPU kernel
+``multithreadedgameengine_tpu/ops/pallas_kernels.py::pair_pass_resident``:
 
-The wrapper dispatches on the device of the tensors it is given: on CPU
-tensors it runs :func:`pair_pass_resident_plain`, the same computation in
-plain PyTorch; on CUDA tensors it launches the kernel or raises. It never
-falls back from one to the other. ``pair_pass_resident.launches`` counts
-kernel launches (never plain-version calls).
+- K1, ``symmetric=False``, the two-sided pass: :func:`pair_pass_resident`,
+  source ``csrc/pair_pass_resident.cu``;
+- K2, ``symmetric=True``, the occupancy-predicated Newton-symmetric pass,
+  optionally with the boundary position clamp folded in:
+  :func:`pair_pass_symmetric`, source ``csrc/pair_pass_symmetric.cu``.
 
-The port runs K1 at every layout width. The reference switches to its
-predicated Newton-symmetric kernel (K2) on wide layouts; K2 is not ported
-yet, so ``physics.solver_predicated="on"`` is refused by the engine.
+``ops/_build.py`` compiles the sources with nvcc at first use and binds them
+with ctypes. Both kernels work on the port's layout ``[cap, R+2, C+2]``, so
+they share every solver cache; ``ops/physics_grid.use_symmetric`` picks the
+one the reference would pick for the same configuration.
+
+Each wrapper dispatches on the device of the tensors it is given: on CPU
+tensors it runs its plain version (``*_plain``, the same computation in
+plain PyTorch); on CUDA tensors it launches the kernel or raises. It never
+falls back from one to the other. ``<wrapper>.launches`` counts kernel
+launches (never plain-version calls).
 """
 
 from __future__ import annotations
@@ -152,3 +156,161 @@ def pair_pass_resident(
 
 
 pair_pass_resident.launches = 0
+
+
+#: K2's forward cell offsets (dr, dc), in the reference's order
+#: (pallas_kernels.py:320); each neighbour pair is seen from one side
+SYM_OFFSETS = ((0, 0), (0, 1), (1, 0), (1, 1), (1, -1))
+
+
+def clamp_moving(x: Tensor, y: Tensor, radius: Tensor, meta: Tensor,
+                 clamp_bounds) -> Tuple[Tensor, Tensor]:
+    """The boundary position clamp K2 folds in (pallas_kernels.py:248-260):
+    moving slots (meta flag 8) clamped to ``[r, extent - r]``, every other
+    slot unchanged."""
+    w, h = float(clamp_bounds[0]), float(clamp_bounds[1])
+    mv = ((meta >> 24) & 8) != 0
+    return (torch.where(mv, torch.clamp(x, radius, w - radius), x),
+            torch.where(mv, torch.clamp(y, radius, h - radius), y))
+
+
+def pair_pass_symmetric_plain(
+    x: Tensor, y: Tensor, radius: Tensor, meta: Tensor, salt: int,
+    strength: float, clamp_bounds=None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2 in plain PyTorch: the reference's predicated Newton-symmetric pass
+    (``_resident_body_pred``, pallas_kernels.py:185-459) on the port's
+    layout, summed in the per-slot order the CUDA kernel uses.
+
+    For every forward offset in :data:`SYM_OFFSETS` and neighbour plane
+    ``j = 0..cap-1``, a slot on plane ``p`` first adds its own push from the
+    pair (itself, slot j at +offset), when it takes the i side (p > j for
+    the same cell, any p otherwise); then, when p == j, the back-sum: the
+    reciprocal pushes of the slots at -offset (i > j for the same cell),
+    summed over i in order from 0.0. Per-pair arithmetic is the reference's:
+    ``base = (min_d - dist) * strength * inv_dist``, ``pxc = dx * base``,
+    push ``pxc * A_i*B_j`` and reciprocal ``-(pxc * A_j*B_i``) with
+    ``A = (1-trig)(1-static)``, ``B = (1-trig)(0.5+0.5 static)``; coincident
+    pairs take the hash direction with ``(2 share) sign 0.001``.
+
+    ``clamp_bounds=(world_w, world_h)`` first clamps every moving slot to
+    ``[r, extent - r]`` (:func:`clamp_moving`); every read and the output
+    base then see the clamped values. Returns (x + acc, y + acc, count) for
+    every slot; border and non-collider slots get acc = 0 and count 0."""
+    _check_layout(x, y, radius, meta)
+    _cap, rows, cols = x.shape
+    R, C = rows - 2, cols - 2
+    if clamp_bounds is not None:
+        x, y = clamp_moving(x, y, radius, meta, clamp_bounds)
+    x_in, y_in = x, y
+    # planes above the highest occupied one take part in no pair (cells fill
+    # their slots rank-ascending): leave them out, as the kernel's scan does
+    occupied = (meta != 0).flatten(1).any(1).nonzero()
+    cap = int(occupied.max()) + 1 if occupied.numel() else 0
+    x, y, radius, meta = x[:cap], y[:cap], radius[:cap], meta[:cap]
+    f = meta >> 24
+    ok = (f & 1) == 1
+    not_trig = 1.0 - ((f >> 1) & 1).to(torch.float32)
+    stat = ((f >> 2) & 1).to(torch.float32)
+    share_a = not_trig * (1.0 - stat)
+    share_b = not_trig * (0.5 + 0.5 * stat)
+    gid = meta & 0xFFFFFF
+
+    acc_x = torch.zeros((cap, R, C), dtype=torch.float32, device=x.device)
+    acc_y = torch.zeros_like(acc_x)
+    acc_c = torch.zeros((cap, R, C), dtype=torch.int32, device=x.device)
+    for dr, dc in SYM_OFFSETS:
+        same_cell = dr == 0 and dc == 0
+        # i cells a whose neighbour a + (dr, dc) lies in the layout; they
+        # cover the interior (i side) and the interior - offset (back-sums)
+        c0, c1 = max(0, -dc), cols - max(0, dc)
+        ei = (slice(None), slice(0, rows - dr), slice(c0, c1))
+        xi, yi, ri, oki = x[ei], y[ei], radius[ei], ok[ei]
+        ai, bi, gi = share_a[ei], share_b[ei], gid[ei]
+        own = (slice(1, R + 1), slice(1 - c0, C + 1 - c0))  # a = q
+        back = (slice(1 - dr, R + 1 - dr), slice(1 - dc - c0, C + 1 - dc - c0))
+        ej = (slice(dr, rows), slice(c0 + dc, c1 + dc))
+        for j in range(cap):
+            xj, yj, rj = x[j][ej], y[j][ej], radius[j][ej]
+            okj, aj, bj, gj = ok[j][ej], share_a[j][ej], share_b[j][ej], gid[j][ej]
+            dx = xi - xj
+            dy = yi - yj
+            d2 = dx * dx + dy * dy
+            min_d = ri + rj
+            overlap = oki & okj & (d2 < min_d * min_d)
+            inv_dist = torch.where(d2 > 0, 1.0 / _sqrt(d2), 0.0)
+            dist = d2 * inv_dist
+            base = (min_d - dist) * strength * inv_dist
+            pxc = dx * base
+            pyc = dy * base
+            share = ai * bj
+            share_j = aj * bi
+            zero = d2 == 0
+            ux, uy = _pair_hash_dir(gi, gj, salt)
+            sign = torch.where(gi < gj, 1.0, -1.0)
+            zs = (2.0 * share) * sign * 0.001
+            zs_j = (2.0 * share_j) * (-sign) * 0.001
+            push_x = torch.where(overlap, torch.where(zero, ux * zs, pxc * share), 0.0)
+            push_y = torch.where(overlap, torch.where(zero, uy * zs, pyc * share), 0.0)
+            rec_x = torch.where(overlap, torch.where(zero, ux * zs_j, -(pxc * share_j)), 0.0)
+            rec_y = torch.where(overlap, torch.where(zero, uy * zs_j, -(pyc * share_j)), 0.0)
+
+            lo = j + 1 if same_cell else 0  # planes taking the i side
+            acc_x[lo:] += push_x[lo:][(slice(None),) + own]
+            acc_y[lo:] += push_y[lo:][(slice(None),) + own]
+            acc_c[lo:] += overlap[lo:][(slice(None),) + own].to(torch.int32)
+            bx = torch.zeros((R, C), dtype=torch.float32, device=x.device)
+            by = torch.zeros_like(bx)
+            for i in range(lo, cap):
+                bx = bx + rec_x[i][back]
+                by = by + rec_y[i][back]
+            acc_x[j] += bx
+            acc_y[j] += by
+            acc_c[j] += overlap[lo:][(slice(None),) + back].sum(0, dtype=torch.int32)
+
+    full_x = torch.zeros(x_in.shape, dtype=torch.float32, device=x.device)
+    full_y = torch.zeros_like(full_x)
+    count = torch.zeros(x_in.shape, dtype=torch.int32, device=x.device)
+    full_x[:cap, 1:R + 1, 1:C + 1] = acc_x
+    full_y[:cap, 1:R + 1, 1:C + 1] = acc_y
+    count[:cap, 1:R + 1, 1:C + 1] = acc_c
+    return x_in + full_x, y_in + full_y, count
+
+
+def pair_pass_symmetric(
+    x: Tensor, y: Tensor, radius: Tensor, meta: Tensor, salt: int,
+    strength: float, clamp_bounds=None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """One K2 pass (see :func:`pair_pass_symmetric_plain` for the contract).
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise if the launch is refused."""
+    _check_layout(x, y, radius, meta)
+    if x.device.type == "cpu":
+        return pair_pass_symmetric_plain(x, y, radius, meta, salt, strength,
+                                         clamp_bounds)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_pass_symmetric runs on cpu or cuda, not {x.device}")
+    from . import _build
+
+    lib = _build.load()
+    cap, rows, cols = x.shape
+    new_x = torch.empty_like(x)
+    new_y = torch.empty_like(y)
+    count = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    clamp = clamp_bounds is not None
+    w, h = (float(clamp_bounds[0]), float(clamp_bounds[1])) if clamp else (0.0, 0.0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pair_pass_symmetric_launch(
+            x.data_ptr(), y.data_ptr(), radius.data_ptr(), meta.data_ptr(),
+            new_x.data_ptr(), new_y.data_ptr(), count.data_ptr(),
+            cap, rows, cols, int(salt) & 0xFFFFFFFF, float(strength),
+            int(clamp), w, h, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pair_pass_symmetric: CUDA launch failed with error {err}")
+    pair_pass_symmetric.launches += 1
+    return new_x, new_y, count
+
+
+pair_pass_symmetric.launches = 0

@@ -57,26 +57,35 @@ def _pair_hash_dir(
     return hx * inv, hy * inv
 
 
-def verlet_move(world: World, cfg: EngineConfig, dt_ratio: float) -> World:
-    """moveBallsVerlet (physics_worker.js:240-316)."""
+def verlet_delta(
+    x: torch.Tensor, y: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+    ax: torch.Tensor, ay: torch.Tensor, max_vel: torch.Tensor,
+    cfg: EngineConfig, dt_ratio: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Verlet displacement of moveBallsVerlet (physics_worker.js:240-316),
+    clamped per axis to maxVel (default cap 100, :284). One implementation
+    for entity order (:func:`verlet_move`) and the solver layout
+    (``physics_grid._layout_verlet``), so the two agree bit for bit."""
     ph = cfg.physics
-    t, rb = world.transform, world.rigid_body
-    moving = t.active & rb.active & ~rb.static
-
     # the reference computes these constants in float32; so does this
     gravity_scale = np.float32(dt_ratio) ** 2
     gx = float(np.float32(gravity_scale * np.float32(ph.gravity[0])))
     gy = float(np.float32(gravity_scale * np.float32(ph.gravity[1])))
     damping = float(np.float32(ph.verlet_damping))
 
-    dx = (t.x - rb.px) * damping + gx + rb.ax * dt_ratio
-    dy = (t.y - rb.py) * damping + gy + rb.ay * dt_ratio
+    dx = (x - px) * damping + gx + ax * dt_ratio
+    dy = (y - py) * damping + gy + ay * dt_ratio
+    max_speed = torch.where(max_vel > 0, max_vel, 100.0)
+    return (torch.clamp(dx, -max_speed, max_speed),
+            torch.clamp(dy, -max_speed, max_speed))
 
-    # per-axis clamp to maxVel (default cap 100, physics_worker.js:284)
-    max_speed = torch.where(rb.max_vel > 0, rb.max_vel, 100.0)
-    dx = torch.clamp(dx, -max_speed, max_speed)
-    dy = torch.clamp(dy, -max_speed, max_speed)
 
+def verlet_move(world: World, cfg: EngineConfig, dt_ratio: float) -> World:
+    """moveBallsVerlet (physics_worker.js:240-316)."""
+    t, rb = world.transform, world.rigid_body
+    moving = t.active & rb.active & ~rb.static
+    dx, dy = verlet_delta(t.x, t.y, rb.px, rb.py, rb.ax, rb.ay, rb.max_vel,
+                          cfg, dt_ratio)
     return world.replace(
         transform=t.replace(
             x=torch.where(moving, t.x + dx, t.x),
@@ -134,7 +143,8 @@ def physics_step(
 ) -> Tuple[World, torch.Tensor]:
     """One physics frame on the grid solver (updateVerlet,
     physics_worker.js:145-233): Verlet move, the substepped constraints of
-    ``physics_grid.grid_constraints_resident``, derived properties.
+    ``physics_grid.grid_constraints_resident`` (with the bin and attribute
+    caches when the world carries them), derived properties.
     Returns (world, solver_overflow)."""
     from .physics_grid import grid_constraints_resident
 

@@ -7,11 +7,13 @@ the frame counter.
 
 ``step_count`` is a host int: the host drives every frame of an eager
 PyTorch step, so it always knows the count, and the pair kernel takes it as
-a launch argument (its hash salt) without a device read. The reference's
-collision-pair and event tables, decal canvas, shadow sprites, particle
-pool, device PRNG key and solver-cache leaves (``solver_flat`` ...
-``solver_maxv``) belong to features this port refuses so far
-(engine.Engine lists them) and are not allocated.
+a launch argument (its hash salt) without a device read. The solver-cache
+stamps ``solver_bin_step`` and ``solver_pos_step`` are host ints for the
+same reason: where the reference picks a branch inside its program with
+``jax.lax.cond`` on them, the port picks it with a host ``if``, so no frame
+reads the device to choose. The reference's collision-pair and event
+tables, decal canvas, shadow sprites, particle pool and device PRNG key
+belong to features this port refuses so far and are not allocated.
 
 ``EntityPool`` is the reference's host-side numpy free list, copied as is.
 """
@@ -45,6 +47,28 @@ class World(Struct):
     mouse: MouseComponent
     # frame counter (syncData[0] analog, gameEngine.js:718-738)
     step_count: int = 0
+    # grid-solver bin cache (physics.rebin_interval > 1; None otherwise):
+    # each entity's flat slot in the solver layout [cap, R+2, C+2] as of the
+    # last rebin (``cap*(R+2)*(C+2)`` when not in the grid), the in-capacity
+    # mask, and the step_count of that rebin (-1: never, so the next frame
+    # rebins). The reference's state.py:84-91; see ops/physics_grid.py.
+    solver_flat: Optional[torch.Tensor] = None  # int64[N]
+    solver_in_grid: Optional[torch.Tensor] = None  # bool[N]
+    solver_bin_step: Optional[int] = None
+    # the radius and meta layouts of the last rebin (solver "pallas" with the
+    # bin cache on): between rebins only positions change
+    solver_grad: Optional[torch.Tensor] = None  # f32[cap, R+2, C+2]
+    solver_meta: Optional[torch.Tensor] = None  # int32[cap, R+2, C+2]
+    # layout-resident positions (physics.position_residency): x/y/px/py
+    # live in the solver layout across frames, with the per-slot max_vel;
+    # ``solver_pos_step`` is the step_count at which the layout is current
+    # (-1: invalid, the next resident frame rebuilds it from entity order)
+    solver_maxv: Optional[torch.Tensor] = None  # f32[cap, R+2, C+2]
+    solver_x: Optional[torch.Tensor] = None
+    solver_y: Optional[torch.Tensor] = None
+    solver_px: Optional[torch.Tensor] = None
+    solver_py: Optional[torch.Tensor] = None
+    solver_pos_step: Optional[int] = None
 
     @property
     def n_entities(self) -> int:

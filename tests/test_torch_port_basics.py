@@ -62,7 +62,7 @@ def test_port_runs_two_frames_without_jax():
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(REPO) for p in PORT.rglob("*.py"))
-    + [Path("chip_smoke.py")],
+    + [Path("chip_smoke.py"), Path("torch_profile.py")],
     ids=str,
 )
 def test_source_has_no_jax_import(path):
@@ -109,24 +109,45 @@ def test_mulberry32_streams_match_reference(seed):
 
 @pytest.mark.parametrize("physics,other", [
     (dict(solver="neighbors"), {}),
-    (dict(solver_predicated="on"), {}),
-    (dict(rebin_interval=2), {}),
-    (dict(position_residency="on"), {}),
     ({}, dict(logic=dict(collision_events=True))),
     ({}, dict(logic=dict(screen_events=True))),
     ({}, dict(particle=dict(max_particles=16))),
     ({}, dict(lighting=dict(enabled=True))),
-], ids=["neighbors", "k2", "rebin", "residency", "collision_events",
-        "screen_events", "particles", "lighting"])
+], ids=["neighbors", "collision_events", "screen_events", "particles", "lighting"])
 def test_unported_config_is_refused(physics, other):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(make_config(physics=physics, **other), device="cpu")
 
 
+@pytest.mark.parametrize("physics", [
+    dict(solver_predicated="on"),
+    dict(rebin_interval=2),
+    dict(position_residency="on", rebin_interval=2),
+], ids=["k2", "rebin", "residency"])
+def test_slice_b_config_runs(physics):
+    """The configurations slice B ported build and run 2 frames on the CPU:
+    K2, the rebin cache, and position residency."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(n_balls=60, seed=4, device="cpu", world_width=600.0,
+                            world_height=400.0, physics=dict(
+                                balls_config().physics.__dict__, **physics))
+    eng.step(2)
+    plan = eng._plan
+    assert plan.symmetric == (physics.get("solver_predicated") == "on")
+    # residency is "auto" by default: on wherever the bin cache is
+    assert plan.residency == ("rebin_interval" in physics)
+    assert (eng.world.solver_flat is not None) == ("rebin_interval" in physics)
+    w = eng.world
+    assert w.step_count == 2
+    assert bool((torch.isfinite(w.transform.x) & torch.isfinite(w.transform.y)).all())
+    assert int(w.rigid_body.collision_count.sum()) > 0
+
+
 def test_unported_runtime_updates_and_apis_are_refused():
     eng = Engine(balls_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.update_physics_config(rebin_interval=4)
+        eng.update_physics_config(solver="neighbors")
     for api in (eng.begin_plan, eng.save_checkpoint, eng.render_packet):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api()
