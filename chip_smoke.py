@@ -73,6 +73,14 @@ def pos_tol(extent: float) -> float:
     return 2.0 * float(np.spacing(np.float32(extent)))
 
 
+def card_name_and_limit() -> str:
+    """The first card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
@@ -137,10 +145,12 @@ def time_kernel(kernel, plain, args, kernel_reps=200, plain_reps=5, **kw):
 
 def bound(args, contacts: int, symmetric: bool):
     """The least time the card could take for one pass over this layout, in
-    ms, and what bounds it: the bytes the function must move (x, y, radius,
-    meta read once; x, y, count written once: 28 bytes a slot) over the HBM
-    rate, against the float32 operations this data needs over the card's
-    non-tensor-core rate. Operations: 8 per candidate pair (dx, dy, d2,
+    ms, and what bounds it: the bytes the function must move (x, y, meta
+    read and x, y, count written for every slot, 24 bytes; the radius read
+    only for the slots holding a collider, 4 bytes each, since every other
+    slot takes part in no pair) over the HBM rate, against the float32
+    operations this data needs over the card's non-tensor-core rate.
+    Operations: 8 per candidate pair (dx, dy, d2,
     min_d, the overlap test) and 16 more per contact (square root, division,
     the push and its sum), over the candidate pairs of the 3x3 neighbourhood
     -- each pair once for K2, from both sides for K1. ``contacts`` is the
@@ -148,7 +158,7 @@ def bound(args, contacts: int, symmetric: bool):
     import torch
 
     x, meta = args[0], args[3]
-    n_bytes = 28 * x.numel()
+    n_bytes = 24 * x.numel() + 4 * int((((meta >> 24) & 1) != 0).sum().item())
     occ = (meta != 0).sum(0).to(torch.float64)  # entities per cell
     nb = torch.nn.functional.avg_pool2d(occ[None, None], 3, stride=1, padding=1,
                                         divisor_override=1)[0, 0]
@@ -255,11 +265,7 @@ def main() -> int:
     k2, k2_plain = ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain
 
     # 1. card and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_name_and_limit(), flush=True)
     fresh = [s.name for s in _build.missing()]
     t0 = time.perf_counter()
     libs = _build.build()

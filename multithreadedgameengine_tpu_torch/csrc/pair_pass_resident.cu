@@ -16,11 +16,12 @@
 // meta = gid | flags << 24 (flag bits 1 collider, 2 trigger, 4 static,
 // 8 moving). Border and empty slots pass their x/y through with count 0.
 //
-// What bounds it on an H100: each pass streams 16 bytes in (x, y, radius,
-// meta) and 12 bytes out (x, y, count) per slot -- 0.22 GB at the 1M-ball
-// layout [12, 536, 1202], about 65 us at 3.35 TB/s -- while each occupied
-// slot makes 9*cap neighbour meta reads and a full pair evaluation for each
-// occupied neighbour slot. The neighbour reads are the cost: they hit L1/L2
+// What bounds it on an H100: each pass must read x, y and meta and write
+// x, y and count for every slot (24 bytes), and read the radius of every
+// collider slot (4 bytes) -- about 0.19 GB at the 1M-ball layout
+// [12, 536, 1203] with 1M balls, about 57 us at 3.35 TB/s -- while each
+// occupied slot makes 9*cap neighbour meta reads and a full pair evaluation
+// for each occupied neighbour slot. The neighbour reads are the cost: they hit L1/L2
 // because neighbouring threads read neighbouring columns. The design keeps
 // them cheap and coalesced (one thread per slot, column fastest, so a warp
 // reads 32 consecutive floats of one plane), skips empty neighbour slots on

@@ -34,10 +34,11 @@
 // moving (meta flag 8), as the reference clamps its VMEM tile right after
 // the DMA; the output is clamped x + acc for every slot.
 //
-// What bounds it on an H100: each pass streams 16 bytes in (x, y, radius,
-// meta) and 12 bytes out per slot -- 0.22 GB at the 1M-ball layout
-// [12, 536, 1202], about 65 us at 3.35 TB/s. The pair work is below the
-// card's rates; the neighbour reads, which hit L1/L2 because neighbouring
+// What bounds it on an H100: each pass must read x, y and meta and write
+// x, y and count for every slot (24 bytes), and read the radius of every
+// collider slot (4 bytes) -- about 0.19 GB at the 1M-ball layout
+// [12, 536, 1203] with 1M balls, about 57 us at 3.35 TB/s. The pair work
+// is below the card's rates; the neighbour reads, which hit L1/L2 because neighbouring
 // threads read neighbouring columns of one plane, are what the thread
 // waits on. Evaluating each pair once, with the reciprocal exchanged through
 // shared memory, is later work.

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/ops/physics_grid.py``:
 ``solver_geometry`` (:43-80), ``grid_constraints_resident`` (:485-694) with
-the bin cache ``_cached_bins`` (:350-379) and the attribute-layout cache,
+the bin cache (``_cached_bins``, :350-379) and the attribute-layout cache,
 the shared substep loop ``_resident_substeps`` (:382-482), the kernel gate
 ``_use_symmetric`` (:770-778), and the position-resident solver:
 ``_pin_layout_positions``, ``_layout_verlet``, ``_band_spec``,
@@ -178,24 +178,6 @@ def bins_expired(world: World, interval: int) -> bool:
             or world.step_count - world.solver_bin_step >= interval)
 
 
-def _cached_bins(world: World, cfg: EngineConfig, compute):
-    """Bin-cache gate for ``physics.rebin_interval > 1``: recompute (flat
-    slot, in-grid mask) on the first frame and every k-th frame after; reuse
-    the cached assignment in between. Positions scattered into the (possibly
-    stale) slots are always current. No-op (always compute) when the engine
-    did not install the cache. Returns (world', flat, in_grid)."""
-    interval = max(1, cfg.physics.rebin_interval)
-    if interval == 1 or world.solver_flat is None:
-        flat, in_grid = compute()
-        return world, flat, in_grid
-    if not bins_expired(world, interval):
-        return world, world.solver_flat, world.solver_in_grid
-    flat, in_grid = compute()
-    world = world.replace(solver_flat=flat, solver_in_grid=in_grid,
-                          solver_bin_step=world.step_count)
-    return world, flat, in_grid
-
-
 def _band_px(a, pa, grad, g_moving, slices, extent: float, elasticity: float) -> None:
     """The bounce write ``px = cx + (cx - px) * e`` on border slices only,
     IN PLACE on ``pa`` (a layout the calling frame created)."""
@@ -280,34 +262,37 @@ def grid_constraints_resident(
     shape = layout_shape(geom)
     valid = t.active & torch.isfinite(t.x) & torch.isfinite(t.y)
 
-    def compute():
-        return _bins(t.x, t.y, valid, geom)
-
+    # The bin cache (physics.rebin_interval > 1, installed by the engine)
+    # recomputes the slot assignment on the first frame and every k-th frame
+    # after and reuses it in between; positions scattered into the (possibly
+    # stale) slots are always current. The attribute layouts (the "pallas"
+    # solver's cache) ride the rebin, and so does a residency max_vel layout,
+    # or a later resident frame would clamp through a stale assignment.
     interval = max(1, ph.rebin_interval)
+    bins_cached = interval > 1 and world.solver_flat is not None
     attr_cached = (
         interval > 1
         and world.solver_grad is not None
         and tuple(world.solver_grad.shape) == shape
     )
-    if not attr_cached:
-        world, flat, in_grid = _cached_bins(world, cfg, compute)
-        grad, meta = _attr_layouts(world, flat, shape)
-    elif bins_expired(world, interval):
-        # the attribute layouts ride the rebin: between rebins only x/y are
-        # scattered. A residency max_vel layout is refreshed with them, or a
-        # later resident frame would clamp through a stale slot assignment.
-        flat, in_grid = compute()
-        grad, meta = _attr_layouts(world, flat, shape)
-        track_maxv = (world.solver_maxv is not None
-                      and tuple(world.solver_maxv.shape) == shape)
-        world = world.replace(
-            solver_flat=flat, solver_in_grid=in_grid, solver_grad=grad,
-            solver_meta=meta, solver_bin_step=world.step_count,
-            **({"solver_maxv": _scatter(flat, shape, rb.max_vel)} if track_maxv else {}),
-        )
-    else:
+    if bins_cached and not bins_expired(world, interval):
         flat, in_grid = world.solver_flat, world.solver_in_grid
-        grad, meta = world.solver_grad, world.solver_meta
+        if attr_cached:
+            grad, meta = world.solver_grad, world.solver_meta
+        else:
+            grad, meta = _attr_layouts(world, flat, shape)
+    else:
+        lay = build_layout(world, geom)
+        flat, in_grid, grad, meta = lay.flat, lay.in_grid, lay.radius, lay.meta
+        if bins_cached:
+            caches = dict(solver_flat=flat, solver_in_grid=in_grid,
+                          solver_bin_step=world.step_count)
+            if attr_cached:
+                caches.update(solver_grad=grad, solver_meta=meta)
+                if (world.solver_maxv is not None
+                        and tuple(world.solver_maxv.shape) == shape):
+                    caches.update(solver_maxv=lay.scatter(rb.max_vel))
+            world = world.replace(**caches)
 
     gx = _scatter(flat, shape, t.x)
     gy = _scatter(flat, shape, t.y)
@@ -498,9 +483,9 @@ def resident_persistent_step(
                                           meta, maxv, cfg, force_specs, inputs, dt_ratio)
     else:
         if expired:
-            flat, in_grid = _bins(te.x, te.y, valid_e, geom)
-            grad, meta = _attr_layouts(w_e, flat, shape)
-            maxv = _scatter(flat, shape, rbe.max_vel)
+            lay = build_layout(w_e, geom)
+            flat, in_grid, grad, meta = lay.flat, lay.in_grid, lay.radius, lay.meta
+            maxv = lay.scatter(rbe.max_vel)
         else:
             flat, in_grid = world.solver_flat, world.solver_in_grid
             grad, meta, maxv = world.solver_grad, world.solver_meta, world.solver_maxv

@@ -315,3 +315,32 @@ def test_config_after_plan_names_the_resident_solver():
     before = dataclasses.replace(et.config.physics, solver="pallas")
     et.step(1)
     assert et.config.physics == before
+
+
+def test_first_plan_geometry_and_overflow_match_reference(monkeypatch):
+    """Both packages build their first plan before the queued one-by-one
+    spawns land (below 50k balls the balls model spawns one by one), so
+    the plan sees their radii only as the largest radius. The solver grid
+    (cell, rows, columns, capacity) must come out the same, and in a world
+    dense enough to overflow, so must the first frame's overflow count."""
+    import multithreadedgameengine_tpu.ops.physics_grid as ref_grid
+
+    seen = []
+    orig = ref_grid.solver_geometry
+
+    def spy(*args, **kwargs):
+        seen.append(orig(*args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(ref_grid, "solver_geometry", spy)
+    kw = dict(n_balls=300, seed=7, world_width=600.0, world_height=400.0)
+    ej = ref_balls(**kw)
+    et = port_balls(**kw, device="cpu")
+    ej.step(1)
+    et.step(1)
+    fields = ("cell_size", "rows", "cols", "capacity")
+    assert len(seen) == 1
+    assert ([getattr(et._plan.solver_geom, f) for f in fields]
+            == [getattr(seen[0], f) for f in fields])
+    overflow = int(et.metrics["solver_overflow"])
+    assert overflow == int(ej.metrics["solver_overflow"]) and overflow > 0

@@ -25,16 +25,12 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-LADDER_PHYSICS = dict(
-    sub_step_count=2, max_collision_pairs=1, verlet_damping=0.99,
-    boundary_elasticity=0.0, collision_response_strength=0.8,
-    gravity=(0.0, 0.5), solver_capacity=12, rebin_interval=8,
-)
+from chip_smoke import LADDER_PHYSICS, card_name_and_limit
+
 CELLS = {
     "balls_10k": dict(n_balls=10_000, seed=123456),
     "balls_1m_ladder": dict(n_balls=1_000_000, seed=123456, world_width=90_000.0,
@@ -108,10 +104,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name_and_limit()
     print(smi, flush=True)
     results = {"card": smi, "torch": torch.__version__, "cells": []}
     for name, kw in CELLS.items():
