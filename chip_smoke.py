@@ -29,7 +29,19 @@ Phases, each printing one line or more before the last:
    its plain version on that layout, and K1 and K2 timed on it;
 5. residency on against off on the card: 100,000 balls with the ladder's
    knobs and the mouse held down, 2 x ``rebin_interval`` frames each; x, y,
-   px, py and the contact counts must be bit-equal.
+   px, py and the contact counts must be bit-equal;
+6. slice E1's main path, the spatial-domain halo step on the card: (a) K3
+   (the legacy grid pair pass) against its plain version on a synthetic
+   grid with occupied border rows, a static, a trigger, a coincident pair
+   and a full cell; (b) the JAX halo scaling benchmark's balls scene
+   (``benchmarks/halo_scaling.py:104-110``: 999,999 balls and the mouse in
+   90000 x 40000, the demo's physics) cut into 4 slabs on one card,
+   ``oversub`` 4, 3 + 10 frames through ``make_halo_step``: steps/s, K3
+   launches (frames x substeps x slabs), K1 and K2 launches (0), route
+   overflow and finiteness; then K3 against its plain version on one slab
+   grid of that run, and timed there; (c) 100,000 entities in 28460 x 12649
+   on 4 slabs (``oversub`` 4) against ``Engine.step`` (K1) for 10 frames:
+   x, y, px, py and the contact counts must be bit-equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises, exits
@@ -57,11 +69,17 @@ LADDER_PHYSICS = dict(
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
+# slice E1's halo rung (benchmarks/halo_scaling.py:104-110 at its default n)
+HALO_N, HALO_SLABS, HALO_WARMUP, HALO_FRAMES = 1_000_000, 4, 3, 10
+HALO_WORLD = (90_000.0, 40_000.0)
+# the halo-against-single-device check: 100,000 entities at the demo's density
+CHECK_N, CHECK_WORLD = 100_000, (9000.0 * 10 ** 0.5, 4000.0 * 10 ** 0.5)
 PEAK_F32_S = 67e12
 
 
 # Each kernel against its plain version: contact counts must match exactly;
-# positions to 2 float32 ulps at the world's extent. Both sides round every
+# positions to 2 float32 ulps at the world's extent, and K3's displacements
+# to 2 ulps at their own largest magnitude. Both sides round every
 # operation the same way and sum in the same order (the kernels are built
 # with --fmad=false and use IEEE sqrt and division, as torch's separate CUDA
 # ops do), so the expected difference is 0; the bound leaves room for a
@@ -99,21 +117,27 @@ def kernels():
 
 def kernel_vs_plain(kernel, plain, name, args, extent, **kw):
     """Run a kernel and its plain version on the same card inputs; returns
-    the max position error and the kernel's outputs after checking counts
-    and tolerance."""
+    the max error of the first two outputs (positions, or K3's
+    displacements) and the kernel's outputs after checking counts and
+    tolerance. ``extent=None`` scales the tolerance to the largest value
+    the plain version returns (K3's displacements, of order 1 px), not to
+    the world."""
     import torch
 
     kx, ky, kc = kernel(*args, **kw)
     px, py, pc = plain(*args, **kw)
     torch.cuda.synchronize()
     err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+    if extent is None:
+        extent = max(px.abs().max().item(), py.abs().max().item())
+    tol = pos_tol(extent)
     n_bad = int((kc != pc).sum().item())
     contacts = int(kc.sum().item())
     label = kernel.__name__ + ("+clamp" if kw.get("clamp_bounds") else "")
     log("parity", kernel=label, layout=name, shape=list(args[0].shape), contacts=contacts,
-        count_mismatch=n_bad, max_abs_err=err, tol=pos_tol(extent))
+        count_mismatch=n_bad, max_abs_err=err, tol=tol)
     check(n_bad == 0, f"{label}: contact counts differ from the plain version on {name}")
-    check(err <= pos_tol(extent), f"{label}: positions differ by {err} on {name}")
+    check(err <= tol, f"{label}: outputs differ by {err} on {name}")
     check(contacts > 0, f"no contacts in the {name} layout")
     return err, (kx, ky, kc)
 
@@ -232,21 +256,225 @@ def synthetic_args(device):
     return args, (lay.flat[7].item(), lay.flat[8].item())  # the coincident pair
 
 
+def grid_bound(args, contacts: int):
+    """The least time the card could take for one K3 pass over this grid,
+    in ms, and what bounds it: the bytes the function must move (the flags
+    read and dx, dy and count written for every slot, 16 bytes; x, y,
+    radius and gid read only for the slots holding a collider, 16 bytes
+    each, since every other slot takes part in no pair) over the HBM rate,
+    against the float32 operations this data needs (8 per candidate pair of
+    the 3x3 neighbourhood, border rows included, and 16 more per contact
+    from each side, as in :func:`bound`) over the non-tensor-core rate."""
+    import torch
+
+    x, attrs = args[0], args[2]
+    coll = (attrs[..., 1].to(torch.int32) & 1) == 1
+    n_bytes = 16 * x.numel() + 16 * int(coll.sum().item())
+    occ = coll.sum(-1).to(torch.float64)
+    nb = torch.nn.functional.avg_pool2d(occ[None, None], 3, stride=1, padding=1,
+                                        divisor_override=1)[0, 0]
+    pairs = float((occ * (nb - 1))[1:-1, 1:-1].sum().item())
+    n_ops = 8 * pairs + 16 * contacts
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synthetic_grid_args(device):
+    """A hand-made bordered grid [R+2, C+2, cap] (world 300 x 180, cell 30,
+    capacity 4) binned as the halo step bins: entities in both border rows
+    overlapping interior ones across the seam, a static body and a trigger
+    in a pile, an exactly coincident pair, and six entities in one cell (a
+    full cell; two are left out)."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import (
+        pack_solver_rows,
+        scatter_solver_grid,
+    )
+    from multithreadedgameengine_tpu_torch.ops.spatial import GridGeom, bin_entities
+    from multithreadedgameengine_tpu_torch.state import make_world
+
+    cell, R, C, cap = 30.0, 6, 10, 4
+    pts = [
+        # across the top seam (border row 0 holds y in [-30, 0))
+        (50.0, 3.0, 6.0), (52.0, -6.0, 6.0), (120.0, -2.0, 5.0), (124.0, 5.0, 5.0),
+        # across the bottom seam (border row R+1 holds y in [180, 210))
+        (200.0, 176.0, 6.0), (203.0, 186.0, 6.0),
+        # a static body and a trigger overlapping dynamic ones
+        (100.0, 100.0, 8.0), (110.0, 104.0, 6.0), (104.0, 110.0, 6.0),
+        # exactly coincident pair
+        (200.0, 60.0, 5.0), (200.0, 60.0, 5.0),
+        # six entities in one cell of capacity 4
+        (245.0, 125.0, 4.0), (250.0, 128.0, 4.0), (255.0, 122.0, 4.0),
+        (248.0, 132.0, 4.0), (252.0, 120.0, 4.0), (258.0, 130.0, 4.0),
+    ]
+    n = len(pts)
+    w = make_world(n, device)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    static = torch.zeros(n, dtype=torch.bool, device=device)
+    static[6] = True
+    trig = torch.zeros(n, dtype=torch.bool, device=device)
+    trig[7] = True
+    on = torch.ones(n, dtype=torch.bool, device=device)
+    x, y = f32([p[0] for p in pts]), f32([p[1] for p in pts])
+    w = w.replace(
+        transform=w.transform.replace(active=on, x=x, y=y),
+        rigid_body=w.rigid_body.replace(active=on, static=static),
+        collider=w.collider.replace(active=on, is_trigger=trig,
+                                    radius=f32([p[2] for p in pts])),
+    )
+    # grid rows 0 .. R+1 (border rows included), then the port's flat slots
+    row = torch.clamp(torch.floor(y / cell).to(torch.int32) + 1, 0, R + 1)
+    col = torch.clamp((x / cell).to(torch.int32), 0, C - 1)
+    bins = bin_entities(x, y, on, GridGeom(cell_size=cell, rows=R + 2, cols=C, capacity=cap),
+                        build_table=False, row=row, col=col)
+    ok = bins.rank < cap
+    check(int((~ok).sum().item()) == 2, "synthetic grid: expected 2 over capacity")
+    flat = (bins.row.long() * (C + 2) + bins.col.long() + 1) * cap + bins.rank.long()
+    grid = scatter_solver_grid(pack_solver_rows(w), torch.where(ok, flat, (R + 2) * (C + 2) * cap),
+                               R, C, cap)
+    return (grid[..., 0].contiguous(), grid[..., 1].contiguous(),
+            grid[..., 4:7].contiguous(), 17, 0.8)
+
+
+def slab_grid_args(step, chunks, mesh, d=1):
+    """K3's input on slab ``d`` at this moment of a halo run: phase B's
+    routing, binning, scatter and border fill (``parallel.halo``'s
+    per-slab functions) applied to the placed chunks."""
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import grid_solver_state
+    from multithreadedgameengine_tpu_torch.parallel import halo
+
+    plan = step.plan
+    sent = [halo.slab_solver_rows(c, plan, i) for i, c in enumerate(chunks)]
+    recv, _slot, _ovf = halo.route_out(mesh, *zip(*sent), plan.route_cap)
+    grids = [halo.slab_grid(r, plan, i)[0] for i, r in enumerate(recv)]
+    halo._fill_border(mesh, grids, plan.slab_geom.rows)
+    st = grid_solver_state(grids[d])
+    return (st.gx, st.gy, st.attrs, chunks[0].step_count,
+            float(plan.cfg.physics.collision_response_strength))
+
+
 def zero_counts():
     ck = kernels()
     ck.pair_pass_resident.launches = 0
     ck.pair_pass_symmetric.launches = 0
+    ck.pair_pass_grid.launches = 0
 
 
 def read_counts():
     ck = kernels()
-    return ck.pair_pass_resident.launches, ck.pair_pass_symmetric.launches
+    return (ck.pair_pass_resident.launches, ck.pair_pass_symmetric.launches,
+            ck.pair_pass_grid.launches)
 
 
 def finite(w) -> bool:
     import torch
 
     return bool((torch.isfinite(w.transform.x) & torch.isfinite(w.transform.y)).all().item())
+
+
+def halo_phase(dev):
+    """Phase 6, slice E1's main path: K3 parity on a synthetic grid, the 1M
+    halo rung on 4 slabs (launch counts, overflow, K3 parity and timing
+    on one slab grid), and the 100k halo-against-single-device check.
+    Returns K3's launches on the rung, its times, bound, slab shape and
+    parity errors."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, unplace_fn
+
+    ck = kernels()
+    k3, k3_plain = ck.pair_pass_grid, ck.pair_pass_grid_plain
+    # (a) K3 against its plain version on a grid with occupied border rows
+    err, (_x, _y, kc) = kernel_vs_plain(k3, k3_plain, "synthetic_grid",
+                                        synthetic_grid_args(dev), None)
+    errs = [err]
+    check(int(kc[1].sum().item() + kc[-2].sum().item()) > 0,
+          "K3: no contact next to a border row of the synthetic grid")
+
+    # (b) the 1M halo rung: 4 slabs on one card
+    halo_eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
+                                 world_width=HALO_WORLD[0], world_height=HALO_WORLD[1])
+    halo_eng._flush_pending()
+    mesh = make_mesh(HALO_SLABS, dev)
+    step, place = make_halo_step(halo_eng, mesh, oversub=4.0)
+    hplan = step.plan
+    subs = hplan.cfg.physics.sub_step_count
+    chunks = place(halo_eng.world)
+    ins = halo_eng.input.snapshot(dev)
+    zero_counts()
+    for _ in range(HALO_WARMUP):
+        chunks, hm = step(chunks, ins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HALO_FRAMES):
+        chunks, hm = step(chunks, ins)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1_h, k2_h, k3_h = read_counts()
+    frames_h = HALO_WARMUP + HALO_FRAMES
+    expected_k3 = frames_h * subs * HALO_SLABS
+    ok = all(finite(c) for c in chunks)
+    overflow_h = int(hm["route_overflow_solver"].item())
+    log("halo_1m_d4", entities=HALO_N, slabs=HALO_SLABS, frames=frames_h,
+        steps_per_s=HALO_FRAMES / dt, k3_launches=k3_h, expected_k3=expected_k3,
+        k1_launches=k1_h, k2_launches=k2_h, solver_geom=hplan.solver_geom,
+        slab_grid=[hplan.slab_geom.rows + 2, hplan.slab_geom.cols + 2,
+                   hplan.slab_geom.capacity],
+        route_cap=hplan.route_cap, route_overflow_solver=overflow_h,
+        solver_binned=int(hm["solver_binned"].item()),
+        nonfinite=int(hm["nonfinite_count"].item()), finite=ok,
+        mean_contacts=torch.cat([c.rigid_body.collision_count for c in chunks])[1:]
+        .float().mean().item())
+    check(ok and int(hm["nonfinite_count"].item()) == 0, "non-finite positions on the halo rung")
+    check(k3_h == expected_k3 and k1_h == 0 and k2_h == 0,
+          f"halo: K3 launched {k3_h} (expected {expected_k3}), K1 {k1_h}, K2 {k2_h}")
+    check(chunks[0].step_count == frames_h, "halo: step_count")
+    slab_args = slab_grid_args(step, chunks, mesh)
+    err, (_x, _y, kc) = kernel_vs_plain(k3, k3_plain, "halo_1m_slab1", slab_args, None)
+    errs.append(err)
+    contacts_slab = int(kc.sum().item())
+    slab_shape = list(slab_args[0].shape)
+    k3_ms, k3_plain_ms = time_kernel(k3, k3_plain, slab_args, kernel_reps=50, plain_reps=2)
+    bound_k3 = grid_bound(slab_args, contacts_slab)
+    log("timing", grid="halo_1m_slab1", shape=slab_shape, k3_ms=k3_ms,
+        k3_plain_ms=k3_plain_ms, bound_ms=bound_k3[0], bound_by=bound_k3[1],
+        border_row_contacts=int(kc[1].sum().item() + kc[-2].sum().item()))
+    del halo_eng, chunks, slab_args, kc
+
+    # (c) the halo step against the single-device step, bit for bit
+    scene_c = dict(n_balls=CHECK_N - 1, seed=SEED, device=dev, world_width=CHECK_WORLD[0],
+                   world_height=CHECK_WORLD[1])
+    eh, es = make_balls_engine(**scene_c), make_balls_engine(**scene_c)
+    for e in (eh, es):  # both plans see the spawned radii (same solver grid)
+        e._flush_pending()
+    step_c, place_c = make_halo_step(eh, make_mesh(HALO_SLABS, dev), oversub=float(HALO_SLABS))
+    chunks_c = place_c(eh.world)
+    zero_counts()
+    for _ in range(10):
+        chunks_c, mc = step_c(chunks_c, eh.input.snapshot(dev))
+    k3_c = read_counts()[2]
+    zero_counts()
+    es.step(10, block=True)
+    k1_c, k2_c, _k3 = read_counts()
+    check(es._plan.solver_geom == step_c.plan.solver_geom,
+          f"100k: geometries differ: {es._plan.solver_geom} vs {step_c.plan.solver_geom}")
+    a, b = unplace_fn(chunks_c), es.world
+    same = {f: bool(torch.equal(getattr(c(a), f), getattr(c(b), f)))
+            for c, f in ((lambda s: s.transform, "x"), (lambda s: s.transform, "y"),
+                         (lambda s: s.rigid_body, "px"), (lambda s: s.rigid_body, "py"),
+                         (lambda s: s.rigid_body, "collision_count"))}
+    log("halo_vs_single_100k", slabs=HALO_SLABS, frames=10, k3_launches=k3_c,
+        k1_launches_single=k1_c, k2_launches_single=k2_c, bit_equal=same,
+        route_overflow_solver=int(mc["route_overflow_solver"].item()),
+        contacts=int(a.rigid_body.collision_count.sum().item()))
+    check(all(same.values()), f"100k: the halo step and Engine.step differ: {same}")
+    check(k3_c == 10 * subs * HALO_SLABS and k1_c == 10 * subs and k2_c == 0,
+          f"100k: K3 {k3_c}, K1 {k1_c}, K2 {k2_c} launches")
+    return dict(launches=k3_h, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound_k3,
+                shape=slab_shape, errs=errs)
 
 
 def main() -> int:
@@ -321,7 +549,7 @@ def main() -> int:
         eng.step(CHUNK)
     eng.sync()
     dt = time.perf_counter() - t0
-    k1_main, k2_main = read_counts()
+    k1_main, k2_main, k3_main = read_counts()
     frames = WARMUP + CHUNKS * CHUNK
     w = eng.world
     ok = finite(w)
@@ -332,8 +560,9 @@ def main() -> int:
         mean_contacts=w.rigid_body.collision_count[1:].float().mean().item(), finite=ok)
     check(ok, "non-finite positions after the 10k main path")
     check(w.step_count == frames, f"step_count {w.step_count} != {frames}")
-    check(k1_main == frames * subs and k2_main == 0,
-          f"10k: K1 launched {k1_main}, K2 {k2_main} times; expected {frames * subs}, 0")
+    check(k1_main == frames * subs and k2_main == 0 and k3_main == 0,
+          f"10k: K1 launched {k1_main}, K2 {k2_main}, K3 {k3_main} times; "
+          f"expected {frames * subs}, 0, 0")
 
     # reference on a small input: the same scene on the card and on the CPU
     small = dict(n_balls=400, seed=SEED, world_width=1200.0, world_height=800.0)
@@ -364,7 +593,7 @@ def main() -> int:
     big.step(20)
     big.sync()
     dt = time.perf_counter() - t0
-    k1_big, k2_big = read_counts()
+    k1_big, k2_big, k3_big = read_counts()
     w, plan = big.world, big._plan
     ok = finite(w)
     overflow = int(big.metrics["solver_overflow"].item())
@@ -375,8 +604,9 @@ def main() -> int:
         layout=list(w.solver_x.shape), solver_overflow=overflow, boundary_band_drift=drift,
         mean_contacts=w.rigid_body.collision_count[1:].float().mean().item(), finite=ok)
     check(ok, "non-finite positions at 1M")
-    check(w.step_count == 25 and k2_big == 25 * subs and k1_big == 0,
-          f"1M: K1 launched {k1_big}, K2 {k2_big} times; expected 0, {25 * subs}")
+    check(w.step_count == 25 and k2_big == 25 * subs and k1_big == 0 and k3_big == 0,
+          f"1M: K1 launched {k1_big}, K2 {k2_big}, K3 {k3_big} times; "
+          f"expected 0, {25 * subs}, 0")
     check(overflow == 0 and drift == 0, f"1M: overflow {overflow}, band drift {drift}")
     check(plan.residency and plan.symmetric and plan.band_vel_bound > 0 and big.lazy_frames > 0,
           "1M: the ladder path did not run resident, banded and lazy with K2")
@@ -417,6 +647,11 @@ def main() -> int:
     log("residency_100k", frames=frames_100k, lazy_frames_on=lazy["on"], bit_equal=same,
         contacts=int(a.rigid_body.collision_count.sum().item()))
     check(all(same.values()), f"100k: residency on and off differ: {same}")
+    del snaps, a, b
+
+    # 6. slice E1's main path: the halo step with K3
+    halo = halo_phase(dev)
+    errs["K3"] = halo["errs"]
 
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -435,6 +670,9 @@ def main() -> int:
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],
               {"shape": big_shape, "shape_10k": demo_shape, "ms_10k": k2_ms_10k,
                "plain_ms_10k": k2_plain_10k, "bound_ms_10k": bound_10k["K2"][0]}),
+        entry("K3", ck.pair_pass_grid, "multithreadedgameengine_tpu_torch/csrc/pair_pass_grid.cu",
+              "multithreadedgameengine_tpu/ops/pallas_kernels.py:793", halo["launches"],
+              halo["ms"], halo["plain_ms"], halo["bound"], {"shape": halo["shape"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

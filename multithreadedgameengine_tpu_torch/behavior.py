@@ -3,8 +3,9 @@
 PyTorch counterpart of ``multithreadedgameengine_tpu/behavior.py``
 (behavior.py:58-386, 596-722): :class:`EntityClass` with its host hooks
 (``setup``, ``on_spawned``, ``on_spawned_batch``, ``on_despawned``), the
-host contexts, field addressing by ``"component.field"`` path, and
-:func:`run_logic_phase`.
+host contexts, field addressing by ``"component.field"`` path,
+:func:`run_logic_phase`, and :func:`run_logic_phase_masked` (behavior.py:
+723-811) for the halo step's rows in arbitrary order.
 
 Where the reference vmaps a per-entity tick, the port hands the tick each
 class's contiguous slice of the batch: ``ctx.x`` is the ``[count]`` tensor of
@@ -298,6 +299,73 @@ def run_logic_phase(
                 active_slice, value, vals[start:start + count]
             )
             writes[path] = (mask, vals)
+
+    for path, (mask, vals) in writes.items():
+        world = write_field(world, path, torch.where(mask, vals, read_field(world, path)))
+    if despawn is not None:
+        world = apply_despawn_mask(world, despawn)
+    return world
+
+
+def run_logic_phase_masked(
+    world: World,
+    inputs: InputState,
+    cfg: EngineConfig,
+    type_specs: Sequence[Tuple[type, int]],
+    row_ids: Optional[torch.Tensor] = None,
+    gather_fn=None,
+) -> World:
+    """:func:`run_logic_phase` for rows in arbitrary order (the reference's
+    behavior.py:723-811): the halo step's slab chunks, where class slot
+    ranges do not exist. ``type_specs``: (EntityClass, entity_type id).
+    Every class's tick runs over all rows and is merged under ``active &
+    entity_type == id``; writes apply after every class ran; ``"despawn"``
+    clears the active flags.
+
+    ``row_ids``: the rows' global entity ids, handed to the tick as
+    ``ctx.i`` (default ``arange``; the reference hands local row indices).
+    Not ported yet, and refused: the ``"emit"`` key (ROADMAP slice C, item
+    14), ticks that read neighbours and ``gather_fn`` (slice C, item 11)."""
+    if gather_fn is not None:
+        raise NotImplementedError(
+            "gather_fn (ctx.gather of neighbour fields) is not ported to "
+            "PyTorch yet (ROADMAP: slice C, item 11)"
+        )
+    writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    despawn = None
+    n = world.transform.x.shape[0]
+    device = world.device
+    if row_ids is None:
+        row_ids = torch.arange(n, dtype=torch.int32, device=device)
+    view = _entity_view(world, 0, n)
+    for klass, type_id in type_specs:
+        tick_fn = _tick_fn(klass)
+        if tick_fn is None:
+            continue
+        if klass.uses_neighbors:
+            raise NotImplementedError(
+                f"{klass.__name__}: a tick that reads neighbours is not ported "
+                "to PyTorch yet (ROADMAP: slice C, item 11)"
+            )
+        outs = tick_fn(TickCtx(row_ids, world, inputs, cfg.dt_ratio, cfg, view)) or {}
+        mask_cls = world.transform.active & (world.transform.entity_type == type_id)
+        for path, value in outs.items():
+            if path == "emit":
+                raise NotImplementedError(
+                    f"{klass.__name__}.tick returned 'emit': device particle "
+                    "emission is not ported yet (ROADMAP slice C, item 14)"
+                )
+            if path == "despawn":
+                dm = torch.as_tensor(value, device=device) & mask_cls
+                despawn = dm if despawn is None else despawn | dm
+                continue
+            arr = read_field(world, path)
+            value = torch.broadcast_to(torch.as_tensor(value, device=device).to(arr.dtype), (n,))
+            mask, vals = writes.get(path, (None, None))
+            if mask is None:
+                mask = torch.zeros(n, dtype=torch.bool, device=device)
+                vals = torch.zeros_like(arr)
+            writes[path] = (mask | mask_cls, torch.where(mask_cls, value, vals))
 
     for path, (mask, vals) in writes.items():
         world = write_field(world, path, torch.where(mask, vals, read_field(world, path)))

@@ -557,18 +557,30 @@ class Engine:
     # the step
     # ------------------------------------------------------------------
     def _solver_plan(self, cfg: EngineConfig):
-        """The grid solver's geometry from the registered radii."""
+        """The grid solver's geometry from the registered radii, and solver
+        "auto" resolved as "pallas" (the reference's choice on its
+        accelerator; engine.py:1169-1204). Returns (cfg, geometry or None,
+        forced): None and True when no radius is known, where the reference
+        falls back to its neighbour-list solver. May update self.config."""
         radii = self.world.collider.radius.cpu().numpy()
         r_world = float(radii.max()) if radii.size else 0.0
         max_r = max(self._max_radius, r_world)
         if max_r <= 0:
-            # the reference falls back to its neighbour-list solver here
-            _refuse("a scene with no collider radius (neighbour-list solver)",
-                    "slice C, item 12")
+            return cfg, None, True
         present = radii[radii > 0]
         mean_r = float(present.mean()) if present.size else max_r
         self._solver_radius_bound = max_r
-        return solver_geometry(cfg, max_r, mean_radius=mean_r)
+        if cfg.physics.solver == "auto":
+            cfg = dataclasses.replace(
+                cfg, physics=dataclasses.replace(cfg.physics, solver="pallas"))
+            self.config = cfg
+        return cfg, solver_geometry(cfg, max_r, mean_radius=mean_r), False
+
+    def _frame_counts(self) -> torch.Tensor:
+        """Per-(sheet, animation) frame counts for the animation advance. No
+        sprite sheets are registered in the port (rendering is not ported),
+        so every animation has one frame."""
+        return torch.ones((1, 1), dtype=torch.int32, device=self.device)
 
     def _residency_specs(self, cfg: EngineConfig):
         """The ticking classes' (tick_fn, start, count) when every tick is
@@ -596,11 +608,10 @@ class Engine:
         resident solver, as the reference picks it on its accelerator); the
         pair kernel; the solver caches, installed at the layout's shape with
         their stamps reset so the next frame rebins; residency; the band."""
-        cfg = self.config
-        if cfg.physics.solver == "auto":
-            cfg = dataclasses.replace(
-                cfg, physics=dataclasses.replace(cfg.physics, solver="pallas"))
-            self.config = cfg
+        cfg, geom, _forced = self._solver_plan(self.config)
+        if geom is None:
+            _refuse("a scene with no collider radius (neighbour-list solver)",
+                    "slice C, item 12")
         ph = cfg.physics
         dev = self.device
         n = self.world.n_entities
@@ -612,7 +623,6 @@ class Engine:
                     solver_in_grid=torch.zeros((n,), dtype=torch.bool, device=dev),
                 )
             w = w.replace(solver_bin_step=-1)
-        geom = self._solver_plan(cfg)
         shape = layout_shape(geom)
         pallas = ph.solver == "pallas"
 
@@ -645,9 +655,7 @@ class Engine:
                 (reg.cls, reg.start_index, reg.count)
                 for reg in self.classes.values() if reg.count > 0
             ),
-            # no sprite sheets are registered in the port (rendering is not
-            # ported), so every animation has one frame
-            frame_counts=torch.ones((1, 1), dtype=torch.int32, device=dev),
+            frame_counts=self._frame_counts(),
             symmetric=use_symmetric(cfg, geom),
             residency=residency,
             force_specs=specs or (),

@@ -38,6 +38,9 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 #: the C entry point of each source and its argument types
 ENTRY_POINTS = {
+    "pair_pass_grid.cu": ("pair_pass_grid_launch", [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P,
+    ]),
     "pair_pass_resident.cu": ("pair_pass_resident_launch", [
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P,
     ]),

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
-Both replace the TPU kernel
+K1 and K2 replace the TPU kernel
 ``multithreadedgameengine_tpu/ops/pallas_kernels.py::pair_pass_resident``:
 
 - K1, ``symmetric=False``, the two-sided pass: :func:`pair_pass_resident`,
@@ -9,10 +9,18 @@ Both replace the TPU kernel
   optionally with the boundary position clamp folded in:
   :func:`pair_pass_symmetric`, source ``csrc/pair_pass_symmetric.cu``.
 
+Both work on the port's layout ``[cap, R+2, C+2]``, so they share every
+solver cache; ``ops/physics_grid.use_symmetric`` picks the one the reference
+would pick for the same configuration.
+
+K3 replaces ``pallas_kernels.py::pair_pass_pallas``, the legacy grid pass of
+``physics_grid.run_solver_substeps`` (the halo step's solver):
+:func:`pair_pass_grid`, source ``csrc/pair_pass_grid.cu``, on the
+reference's bordered grid ``[R+2, C+2, cap]`` with its border rows read as
+neighbours.
+
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
-with ctypes. Both kernels work on the port's layout ``[cap, R+2, C+2]``, so
-they share every solver cache; ``ops/physics_grid.use_symmetric`` picks the
-one the reference would pick for the same configuration.
+with ctypes.
 
 Each wrapper dispatches on the device of the tensors it is given: on CPU
 tensors it runs its plain version (``*_plain``, the same computation in
@@ -314,3 +322,126 @@ def pair_pass_symmetric(
 
 
 pair_pass_symmetric.launches = 0
+
+
+def _check_grid(x: Tensor, y: Tensor, attrs: Tensor) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"grid must be [rows, cols, cap], got {tuple(x.shape)}")
+    rows, cols, cap = x.shape
+    if cap < 1 or rows < 3 or cols < 3:
+        raise ValueError(f"grid {tuple(x.shape)} has no interior cell")
+    for name, t, shape in (("x", x, x.shape), ("y", y, x.shape),
+                           ("attrs", attrs, (*x.shape, 3))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be torch.float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if attrs.numel() >= 2**31:
+        raise ValueError("grid too large for int32 kernel arguments")
+
+
+def pair_pass_grid_plain(
+    x: Tensor, y: Tensor, attrs: Tensor, salt: int, strength: float,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3 in plain PyTorch: the reference's ``_pair_kernel``
+    (pallas_kernels.py:49-139) on its bordered grid, accumulated in its
+    order (offsets row-major, then neighbour slot j). Per offset, every
+    (i, j) pair's push is computed at once; the sums then run over j one
+    slot at a time.
+
+    ``x``/``y``: f32 ``[R+2, C+2, cap]``; ``attrs``: f32 ``[R+2, C+2, cap,
+    3]`` (radius, flags as an exact small float, gid as an exact float, -1 =
+    empty). Unlike the reference's wrapper, the border rows 0 and R+1 are
+    read as neighbours (they hold the neighbour slabs' edge rows under the
+    halo step), as the XLA formulation reads them. Returns the displacements
+    and the int32 contact count, each of ``x``'s shape, 0 on the border."""
+    _check_grid(x, y, attrs)
+    rows, cols, cap = x.shape
+    R, C = rows - 2, cols - 2
+    ctr = (slice(1, R + 1), slice(1, C + 1))
+    pk = attrs[..., 1].to(torch.int32)
+    gid = attrs[..., 2].to(torch.int32)
+    rad = attrs[..., 0]
+    # centre slots i on axis 2, neighbour slots j on axis 3
+    xs, ys, rs = x[ctr][..., None], y[ctr][..., None], rad[ctr][..., None]
+    ok_i = (pk[ctr][..., None] & 1) == 1
+    trig_i = (pk[ctr][..., None] & 2) != 0
+    st_i = (pk[ctr][..., None] & 4) != 0
+    id_i = gid[ctr][..., None]
+
+    acc_x = torch.zeros((R, C, cap), dtype=torch.float32, device=x.device)
+    acc_y = torch.zeros_like(acc_x)
+    acc_c = torch.zeros((R, C, cap), dtype=torch.int32, device=x.device)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            nb = (slice(1 + dr, R + 1 + dr), slice(1 + dc, C + 1 + dc), None)
+            pkb, idb = pk[nb], gid[nb]  # [R, C, 1, cap]
+            ok = ok_i & ((pkb & 1) == 1) & (id_i != idb)
+            dx = xs - x[nb]
+            dy = ys - y[nb]
+            d2 = dx * dx + dy * dy
+            min_d = rs + rad[nb]
+            overlap = ok & (d2 < min_d * min_d)
+
+            blocked = trig_i | ((pkb & 2) != 0) | st_i
+            st_j = (pkb & 4) != 0
+            share = torch.where(blocked, 0.0, torch.where(st_j, 1.0, 0.5))
+            inv_dist = torch.where(d2 > 0, 1.0 / _sqrt(d2), 0.0)
+            dist = d2 * inv_dist
+            corr = (min_d - dist) * strength * share
+            zero = d2 == 0
+            ux, uy = _pair_hash_dir(id_i, idb, salt)
+            sign = torch.where(id_i < idb, 1.0, -1.0)
+            zshare = torch.where(
+                blocked, 0.0, torch.where(st_j, 2.0, 1.0)
+            ) * sign * 0.001
+            push_x = torch.where(overlap, torch.where(zero, ux * zshare, dx * inv_dist * corr), 0.0)
+            push_y = torch.where(overlap, torch.where(zero, uy * zshare, dy * inv_dist * corr), 0.0)
+            for j in range(cap):
+                acc_x = acc_x + push_x[..., j]
+                acc_y = acc_y + push_y[..., j]
+            acc_c = acc_c + overlap.sum(-1, dtype=torch.int32)
+
+    disp_x = torch.zeros_like(x)
+    disp_y = torch.zeros_like(y)
+    count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    disp_x[ctr], disp_y[ctr], count[ctr] = acc_x, acc_y, acc_c
+    return disp_x, disp_y, count
+
+
+def pair_pass_grid(
+    x: Tensor, y: Tensor, attrs: Tensor, salt: int, strength: float,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """One K3 pass (see :func:`pair_pass_grid_plain` for the contract). CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream and raise if the launch is refused."""
+    _check_grid(x, y, attrs)
+    if x.device.type == "cpu":
+        return pair_pass_grid_plain(x, y, attrs, salt, strength)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_pass_grid runs on cpu or cuda, not {x.device}")
+    from . import _build
+
+    lib = _build.load()
+    rows, cols, cap = x.shape
+    disp_x = torch.empty_like(x)
+    disp_y = torch.empty_like(y)
+    count = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pair_pass_grid_launch(
+            x.data_ptr(), y.data_ptr(), attrs.data_ptr(),
+            disp_x.data_ptr(), disp_y.data_ptr(), count.data_ptr(),
+            rows, cols, cap, int(salt) & 0xFFFFFFFF, float(strength), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pair_pass_grid: CUDA launch failed with error {err}")
+    pair_pass_grid.launches += 1
+    return disp_x, disp_y, count
+
+
+pair_pass_grid.launches = 0

@@ -20,6 +20,15 @@ Where the reference chooses a branch inside its program with
 resident frame; sync or not), the port chooses with a host ``if`` on the
 world's host-int stamps ``solver_bin_step`` and ``solver_pos_step``, so no
 frame reads the device to choose.
+
+The halo step's solver keeps the reference's other layout, the bordered
+grid ``[R+2, C+2, cap, 8]`` of packed rows: ``pack_solver_rows`` (:106-134),
+``scatter_solver_grid`` (:137-151) and ``run_solver_substeps`` (:154-302),
+a one-grid loop over :func:`grid_solver_state` and :func:`solver_substep`;
+the slab mesh calls those two itself, to exchange halo rows between
+substeps. Its "pallas" branch
+runs K3 (``cuda_kernels.pair_pass_grid``), every other solver the XLA
+formulation in plain torch.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..components import Struct
 from ..config import EngineConfig
 from ..state import World
-from .cuda_kernels import pair_pass_resident, pair_pass_symmetric
-from .physics import _boundary, verlet_delta, verlet_move
+from .cuda_kernels import pair_pass_grid, pair_pass_resident, pair_pass_symmetric
+from .physics import _boundary, _pair_hash_dir, _sqrt, verlet_delta, verlet_move
 from .spatial import GridGeom, bin_entities
 
 Band = Tuple[int, int, int, int]
@@ -662,3 +672,173 @@ def resident_lazy_frame(
         solver_pos_step=world.step_count + 1,
         step_count=world.step_count + 1,
     ), band_drift
+
+
+# ----------------------------------------------------------------------
+# the bordered grid layout: the halo step's solver
+# ----------------------------------------------------------------------
+
+
+def pack_solver_rows(world: World, gid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The solver's per-entity attributes as [N, 8] f32 rows (x, y, px, py,
+    radius, flags, gid, 0): flags (1 collider, 2 trigger, 4 static, 8 moving)
+    and the entity id ride as exact small floats.
+
+    ``gid``: the GLOBAL entity ids of a chunk-local world (the halo step
+    packs per-slab chunks whose ids must stay globally unique for the pair
+    identity test and the coincident-pair hash); default ``arange(N)``."""
+    t, rb, c = world.transform, world.rigid_body, world.collider
+    n = t.x.shape[0]
+    if gid is None:
+        gid = torch.arange(n, dtype=torch.int32, device=t.x.device)
+    if n >= (1 << 24):
+        raise ValueError("grid solver packs entity ids into f32: N must be < 2^24")
+    f32 = torch.float32
+    flags = (
+        c.active.to(f32)
+        + c.is_trigger.to(f32) * 2.0
+        + rb.static.to(f32) * 4.0
+        + (t.active & rb.active & ~rb.static).to(f32) * 8.0
+    )
+    return torch.stack(
+        [t.x, t.y, rb.px, rb.py, c.radius, flags, gid.to(f32), torch.zeros_like(t.x)],
+        dim=1,
+    )
+
+
+def scatter_solver_grid(packed: torch.Tensor, flat_idx: torch.Tensor, rows: int,
+                        cols: int, cap: int) -> torch.Tensor:
+    """Scatter [M, 8] packed rows into a bordered grid [rows+2, cols+2, cap,
+    8] at precomputed flat slots (int64; ``(rows+2)*(cols+2)*cap`` marks a
+    row left out, which lands in a spare row that is cut off). Empty slots
+    have gid -1."""
+    flat_cells = (rows + 2) * (cols + 2) * cap
+    base = torch.zeros((flat_cells + 1, 8), dtype=torch.float32, device=packed.device)
+    base[:, 6] = -1.0
+    base.index_copy_(0, flat_idx, packed)
+    return base[:flat_cells].view(rows + 2, cols + 2, cap, 8)
+
+
+@dataclass
+class GridSolverState(Struct):
+    """One bordered solver grid between substeps: positions and px/py change,
+    the attributes do not. Every field is ``[R+2, C+2, cap]`` except
+    ``attrs`` ``[R+2, C+2, cap, 3]`` (radius, flags, gid: K3's input)."""
+
+    gx: torch.Tensor
+    gy: torch.Tensor
+    gpx: torch.Tensor
+    gpy: torch.Tensor
+    attrs: torch.Tensor
+    moving: torch.Tensor  # bool: flag 8
+    count: torch.Tensor  # int32 contacts summed over the substeps so far
+
+
+def grid_solver_state(grid: torch.Tensor) -> GridSolverState:
+    """Split a packed grid [R+2, C+2, cap, 8] into the substep state."""
+    pk = grid[..., 5].to(torch.int32)
+    return GridSolverState(
+        gx=grid[..., 0].contiguous(), gy=grid[..., 1].contiguous(),
+        gpx=grid[..., 2].contiguous(), gpy=grid[..., 3].contiguous(),
+        attrs=grid[..., 4:7].contiguous(),
+        moving=(pk & 8) != 0,
+        count=torch.zeros(pk.shape, dtype=torch.int32, device=grid.device),
+    )
+
+
+def _grid_pass_xla(gx, gy, attrs, salt: int, strength: float):
+    """The reference's XLA formulation of one pair pass on the bordered grid
+    (physics_grid.py:213-295): full-shell 3x3 offsets, neighbour slots in
+    chunks of J = 8 (or the largest of 4, 2, 1 dividing cap), each chunk's
+    pushes summed over the chunk. Plain torch, not a kernel; its sums run in
+    another order than K3's. Returns (disp_x, disp_y, count), 0 on the
+    border."""
+    rows, cols, cap = gx.shape
+    R, C = rows - 2, cols - 2
+    ctr = (slice(1, R + 1), slice(1, C + 1))
+    grad = attrs[..., 0]
+    pk = attrs[..., 1].to(torch.int32)
+    gid = attrs[..., 2].to(torch.int32)
+    g_coll, g_trig, g_static = (pk & 1) == 1, (pk & 2) != 0, (pk & 4) != 0
+
+    xs, ys, rs = gx[ctr][..., None], gy[ctr][..., None], grad[ctr][..., None]
+    ok_i, trig_i = g_coll[ctr][..., None], g_trig[ctr][..., None]
+    st_i, id_i = g_static[ctr][..., None], gid[ctr][..., None]
+    disp_x = torch.zeros((R, C, cap), dtype=torch.float32, device=gx.device)
+    disp_y = torch.zeros_like(disp_x)
+    sub_cnt = torch.zeros((R, C, cap), dtype=torch.int32, device=gx.device)
+    J = next(j for j in (8, 4, 2, 1) if cap % j == 0)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            nbr = (slice(1 + dr, R + 1 + dr), slice(1 + dc, C + 1 + dc))
+            xn, yn, rn = gx[nbr], gy[nbr], grad[nbr]
+            okn, trign, stn, idn = g_coll[nbr], g_trig[nbr], g_static[nbr], gid[nbr]
+            for c0 in range(0, cap, J):
+                sl = (Ellipsis, None, slice(c0, c0 + J))  # [R, C, 1, J]
+                ok = ok_i & okn[sl] & (id_i != idn[sl])
+                dx = xs - xn[sl]
+                dy = ys - yn[sl]
+                d2 = dx * dx + dy * dy
+                min_d = rs + rn[sl]
+                overlap = ok & (d2 < min_d * min_d)
+
+                trig = trig_i | trign[sl]
+                st_j = stn[sl]
+                share = torch.where(trig | st_i, 0.0, torch.where(st_j, 1.0, 0.5))
+                inv_dist = torch.where(d2 > 0, 1.0 / _sqrt(d2), 0.0)
+                dist = d2 * inv_dist
+                corr = (min_d - dist) * strength * share
+                zero = d2 == 0
+                id_j = idn[sl]
+                ux, uy = _pair_hash_dir(id_i, id_j, salt)
+                sign = torch.where(id_i < id_j, 1.0, -1.0)
+                zshare = torch.where(
+                    trig | st_i, 0.0, torch.where(st_j, 2.0, 1.0)
+                ) * sign * 0.001
+                push_x = torch.where(zero, ux * zshare, dx * inv_dist * corr)
+                push_y = torch.where(zero, uy * zshare, dy * inv_dist * corr)
+                ov = overlap.to(torch.float32)
+                disp_x = disp_x + torch.sum(push_x * ov, dim=-1)
+                disp_y = disp_y + torch.sum(push_y * ov, dim=-1)
+                sub_cnt = sub_cnt + torch.sum(overlap, dim=-1, dtype=torch.int32)
+    pad = (0, 0, 1, 1, 1, 1)
+    return (torch.nn.functional.pad(disp_x, pad), torch.nn.functional.pad(disp_y, pad),
+            torch.nn.functional.pad(sub_cnt, pad))
+
+
+def solver_substep(st: GridSolverState, cfg: EngineConfig, salt: int) -> GridSolverState:
+    """One substep on one bordered grid: the boundary clamp and bounce
+    (physics_worker.js:344-376), then one pair pass -- K3 for the "pallas"
+    solver, else the XLA formulation -- whose displacements are added.
+    Reads are against the substep's starting positions (Jacobi)."""
+    ph = cfg.physics
+    e = ph.boundary_elasticity
+    grad = st.attrs[..., 0]
+    gx, gpx = _boundary(st.gx, st.gpx, grad, cfg.world_width, st.moving, e)
+    gy, gpy = _boundary(st.gy, st.gpy, grad, cfg.world_height, st.moving, e)
+    strength = float(ph.collision_response_strength)
+    if ph.solver == "pallas":
+        dx, dy, cnt = pair_pass_grid(gx, gy, st.attrs, salt, strength)
+    else:
+        dx, dy, cnt = _grid_pass_xla(gx, gy, st.attrs, salt, strength)
+    return st.replace(gx=gx + dx, gy=gy + dy, gpx=gpx, gpy=gpy, count=st.count + cnt)
+
+
+def run_solver_substeps(grid: torch.Tensor, geom: GridGeom, cfg: EngineConfig,
+                        salt: int):
+    """The substep loop over one bordered solver grid [R+2, C+2, cap, 8]
+    (channels per :func:`pack_solver_rows`; the reference's function,
+    physics_grid.py:154-302). ``geom.rows/cols`` describe the interior; the
+    one-cell border is read as it stands (empty on one device). The halo
+    step does not call this loop: its border refresh needs every slab at
+    the same substep, so ``parallel.halo`` runs :func:`solver_substep`
+    slab by slab between its exchanges.
+
+    Returns (gx, gy, gpx, gpy, count), each [R+2, C+2, cap]."""
+    expect = (geom.rows + 2, geom.cols + 2, geom.capacity, 8)
+    if tuple(grid.shape) != expect:
+        raise ValueError(f"grid shape {tuple(grid.shape)} != {expect} for {geom}")
+    st = grid_solver_state(grid)
+    for _ in range(cfg.physics.sub_step_count):
+        st = solver_substep(st, cfg, salt)
+    return st.gx, st.gy, st.gpx, st.gpy, st.count

@@ -1,6 +1,7 @@
 """Binning of entities into a uniform grid: cell, rank within the cell.
 
-PyTorch counterpart of ``GridGeom`` and ``bin_entities`` in
+PyTorch counterpart of ``GridGeom`` and ``bin_entities`` (with its
+``row``/``col`` override) in
 ``multithreadedgameengine_tpu/ops/spatial.py:40-163``. The neighbour lists
 built on top of the bins there (slice C of the port) are not ported yet.
 
@@ -67,18 +68,25 @@ def bin_entities(
     valid: torch.Tensor,
     geom: GridGeom,
     build_table: bool = True,
+    row: torch.Tensor = None,
+    col: torch.Tensor = None,
 ) -> BinTable:
     """Clamped truncation cell assignment (spatial_worker.js:157-161), then a
     stable sort by cell, the rank within each cell, and optionally the
     ``[cells + 1, capacity]`` id table. ``build_table=False`` skips the table
     (the grid solver scatters its own layout from cell and rank); ``table``
-    is then a ``[1, capacity]`` placeholder."""
+    is then a ``[1, capacity]`` placeholder.
+
+    ``row``/``col``: precomputed int32 cell coordinates in ``geom``'s grid
+    (the halo step's slab grids bin by the GLOBAL truncation, offset to the
+    slab, so that ranks match the single-device binning)."""
     n = x.shape[0]
     device = x.device
     cells = geom.num_cells
-    inv = 1.0 / geom.cell_size
-    col = _cell_coord(x, inv, geom.cols)
-    row = _cell_coord(y, inv, geom.rows)
+    if row is None:
+        inv = 1.0 / geom.cell_size
+        col = _cell_coord(x, inv, geom.cols)
+        row = _cell_coord(y, inv, geom.rows)
     cell_id = torch.where(valid, row * geom.cols + col, cells).to(torch.int32)
 
     sorted_cid, order = torch.sort(cell_id, stable=True)

@@ -1,0 +1,94 @@
+"""The in-process slab mesh: D world slabs held on one explicit device.
+
+The reference runs its spatial-domain step under ``shard_map`` on a device
+mesh, and its tests run that mesh as 8 virtual CPU devices in one process
+(tests/conftest.py:8-13). The port's counterpart holds the D slabs on one
+device; ``parallel.halo`` runs the step slab by slab between exchange
+points, in bulk-synchronous order, and each collective of the reference is
+an explicit copy between slab buffers:
+
+- ``jax.lax.all_to_all`` (halo.py:202, :213): :meth:`SlabMesh.all_to_all`,
+  a transpose of the ``[D, D, cap, L]`` send blocks;
+- ``jax.lax.ppermute`` with ``_edge_perms`` (halo.py:230-233, :789-799):
+  :meth:`SlabMesh.shift_down` and :meth:`SlabMesh.shift_up`, a copy of each
+  slab's edge row into its neighbour's border row, zeros for a slab that
+  receives nothing (the world's top and bottom);
+- ``jax.lax.psum``: :meth:`SlabMesh.psum`, a sum over slabs.
+
+It is deterministic, cannot hang, and runs on one card. A
+``torch.distributed`` (NCCL) mesh for a host with several cards, one slab
+per process, would offer the same three methods over its collectives and
+call the same per-slab functions of ``parallel.halo`` (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import torch
+
+
+def _edge_perms(n_slabs: int):
+    """The reference's two edge permutations (halo.py:230-233) as (source,
+    destination) pairs: toward higher slabs, and toward lower slabs."""
+    down = [(i, i + 1) for i in range(n_slabs - 1)]
+    up = [(i, i - 1) for i in range(1, n_slabs)]
+    return down, up
+
+
+@dataclass(frozen=True)
+class SlabMesh:
+    """``n_slabs`` slabs on ``device``. Every method takes and returns one
+    entry per slab, in slab order."""
+
+    n_slabs: int
+    device: torch.device
+
+    def _check(self, parts: Sequence[torch.Tensor]) -> None:
+        if len(parts) != self.n_slabs:
+            raise ValueError(f"expected one entry per slab ({self.n_slabs}), got {len(parts)}")
+
+    def all_to_all(self, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``blocks[s]``: slab s's send buffer ``[D, cap, L]``, block d bound
+        for slab d. Returns ``recv[d]`` ``[D, cap, L]`` with ``recv[d][s] ==
+        blocks[s][d]``: source-major, as ``all_to_all(x, axis, 0, 0)``."""
+        self._check(blocks)
+        routed = torch.stack(list(blocks)).transpose(0, 1).contiguous()
+        return list(routed.unbind(0))
+
+    def ppermute(self, parts: Sequence[torch.Tensor],
+                 perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+        """``out[dst] = parts[src]`` for each ``(src, dst)`` of ``perm``;
+        zeros for a slab that is no pair's destination."""
+        self._check(parts)
+        out = [torch.zeros_like(p) for p in parts]
+        for src, dst in perm:
+            out[dst] = parts[src]
+        return out
+
+    def shift_down(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each slab's part to the next higher slab (``_edge_perms``' down
+        permutation); slab 0 receives zeros."""
+        return self.ppermute(parts, _edge_perms(self.n_slabs)[0])
+
+    def shift_up(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each slab's part to the next lower slab (``_edge_perms``' up
+        permutation); the last slab receives zeros."""
+        return self.ppermute(parts, _edge_perms(self.n_slabs)[1])
+
+    def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum over slabs, in the values' own dtype."""
+        self._check(values)
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+        return total
+
+
+def make_mesh(n_slabs: int, device) -> SlabMesh:
+    """The slab mesh of ``n_slabs`` slabs on ``device`` (required, as every
+    entry point of the port)."""
+    if n_slabs < 1:
+        raise ValueError(f"a mesh needs at least one slab, got {n_slabs}")
+    return SlabMesh(n_slabs=int(n_slabs), device=torch.device(device))

@@ -3,12 +3,14 @@
 
     python3 torch_profile.py [--frames 20] [--out build/torch_profile.json]
 
-For each cell -- the demo scene (10,000 balls, ``bench.py``'s scene) and the
-JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs) --
-it warms up, then:
+For each cell -- the demo scene (10,000 balls, ``bench.py``'s scene), the
+JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs)
+through ``Engine.step``, and the halo rung (``chip_smoke.py`` phase 6: the
+1M balls scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one card)
+through ``parallel.make_halo_step`` -- it warms up, then:
 
-- times three chunks of ``--frames`` frames through ``Engine.step`` with the
-  host clock, each ending in ``torch.cuda.synchronize`` (profiler off);
+- times three chunks of ``--frames`` frames with the host clock, each
+  ending in ``torch.cuda.synchronize`` (profiler off);
 - profiles one more chunk with ``torch.profiler`` (CPU and CUDA activities)
   and sums device time by kernel name.
 
@@ -29,34 +31,76 @@ import sys
 import time
 from pathlib import Path
 
-from chip_smoke import LADDER_PHYSICS, card_name_and_limit
+from chip_smoke import (
+    HALO_N,
+    HALO_SLABS,
+    HALO_WORLD,
+    LADDER_PHYSICS,
+    card_name_and_limit,
+)
 
 CELLS = {
     "balls_10k": dict(n_balls=10_000, seed=123456),
     "balls_1m_ladder": dict(n_balls=1_000_000, seed=123456, world_width=90_000.0,
                             world_height=40_000.0, physics=LADDER_PHYSICS),
+    "halo_1m_d4": dict(n_balls=HALO_N - 1, seed=123456, world_width=HALO_WORLD[0],
+                       world_height=HALO_WORLD[1]),
 }
+
+
+def engine_runner(kw: dict):
+    """``run(frames)`` through ``Engine.step``, and what its plan picked."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(device="cuda", **kw)
+
+    def run(frames):
+        eng.step(frames)
+        eng.sync()
+
+    def info():
+        return {"kernel": "K2" if eng._plan.symmetric else "K1",
+                "residency": eng._plan.residency, "lazy_frames": eng.lazy_frames}
+
+    return run, info
+
+
+def halo_runner(kw: dict):
+    """``run(frames)`` through the halo step on ``HALO_SLABS`` slabs."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
+
+    eng = make_balls_engine(device="cuda", **kw)
+    eng._flush_pending()
+    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, "cuda"), oversub=4.0)
+    state = {"chunks": place(eng.world)}
+    ins = eng.input.snapshot("cuda")
+
+    def run(frames):
+        for _ in range(frames):
+            state["chunks"], _m = step(state["chunks"], ins)
+        torch.cuda.synchronize()
+
+    return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}
 
 
 def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
-
-    eng = make_balls_engine(device="cuda", **kw)
-    eng.step(frames, block=True)  # warm-up: the first rebin, the kernel build
+    run, info = (halo_runner if name.startswith("halo") else engine_runner)(kw)
+    run(frames)  # warm-up: the first rebin, the kernel build
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        eng.step(frames)
-        eng.sync()
+        run(frames)
         walls.append((time.perf_counter() - t0) / frames)
-    lazy0 = eng.lazy_frames
+    lazy0 = info()["lazy_frames"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step(frames)
-        eng.sync()
+        run(frames)
         wall_on = time.perf_counter() - t0
     events = prof.key_averages()
     by_kernel = []
@@ -71,7 +115,7 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     if device_us <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
     by_kernel.sort(reverse=True)
-    plan = eng._plan
+    picked = info()
     out = {
         "cell": name,
         "frames": frames,
@@ -81,9 +125,9 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
         "device_ms_per_step": device_us / frames / 1e3,
         "busy_share": device_us / 1e6 / wall_on,
         "device_ops_per_step": n_ops / frames,
-        "kernel": "K2" if plan.symmetric else "K1",
-        "residency": plan.residency,
-        "lazy_frames_in_profiled_chunk": eng.lazy_frames - lazy0,
+        "kernel": picked["kernel"],
+        "residency": picked["residency"],
+        "lazy_frames_in_profiled_chunk": picked["lazy_frames"] - lazy0,
         "top": [
             {"name": k[:90], "ms_per_step": us / frames / 1e3, "calls_per_step": c / frames,
              "share": us / device_us}
