@@ -8,13 +8,16 @@ Phases, each printing one line or more before the last:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions, and
    the nvcc build of the kernels from ``multithreadedgameengine_tpu_torch/
-   csrc`` (sm_90a, one nvcc per source, in parallel);
+   csrc`` (sm_90a, one nvcc per source, in parallel), with each kernel's
+   registers, shared memory and spills from ``-Xptxas -v``;
 2. kernel parity: K1 (the two-sided pair pass) and K2 (the predicated
    Newton-symmetric pass, with and without its folded boundary clamp)
    against their plain PyTorch versions on the card, on the demo scene's
    layout after 30 frames and on a synthetic layout with statics, a trigger,
    a world-edge pile, a coincident pair, a full cell and moving slots
-   outside the world; then both kernels timed with CUDA events;
+   outside the world; K2 also on two dense layouts where every cell is full
+   (capacity 4 and 64, with occupied slots that hold no collider); then both
+   kernels timed with CUDA events;
 3. slice A's main path: the ``bench.py`` scene (10,000 balls, seed 123456)
    for 10 + 120 frames through ``Engine.step``, with the launch count of
    every kernel over exactly that run (K1 only: the reference's gate picks
@@ -33,7 +36,9 @@ Phases, each printing one line or more before the last:
 6. slice E1's main path, the spatial-domain halo step on the card: (a) K3
    (the legacy grid pair pass) against its plain version on a synthetic
    grid with occupied border rows, a static, a trigger, a coincident pair
-   and a full cell; (b) the JAX halo scaling benchmark's balls scene
+   and a full cell, and on two dense grids where every cell, border rows
+   included, is full (capacity 4 and 64); (b) the JAX halo scaling
+   benchmark's balls scene
    (``benchmarks/halo_scaling.py:104-110``: 999,999 balls and the mouse in
    90000 x 40000, the demo's physics) cut into 4 slabs on one card,
    ``oversub`` 4, 3 + 10 frames through ``make_halo_step``: steps/s, K3
@@ -41,7 +46,11 @@ Phases, each printing one line or more before the last:
    overflow and finiteness; then K3 against its plain version on one slab
    grid of that run, and timed there; (c) 100,000 entities in 28460 x 12649
    on 4 slabs (``oversub`` 4) against ``Engine.step`` (K1) for 10 frames:
-   x, y, px, py and the contact counts must be bit-equal.
+   x, y, px, py and the contact counts must be bit-equal; (d) K3 timed on
+   one slab grid of the 10,000-ball demo scene on 4 slabs;
+7. the K4 probe's yardstick (K4 is not ported): the scatter
+   ``benchmarks/probe_expand_kernel.py`` checks its kernel against, at the
+   probe's shapes, timed on its own ``[k4_library]`` line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises, exits
@@ -256,6 +265,63 @@ def synthetic_args(device):
     return args, (lay.flat[7].item(), lay.flat[8].item())  # the coincident pair
 
 
+def dense_world(device, n, world, seed):
+    """``n`` entities placed at random (numpy, ``seed``) in ``world`` and up
+    to one cell beyond it on every side: a tenth static, a tenth triggers,
+    and one in twenty with its collider off (an occupied slot that holds
+    no collider)."""
+    import numpy as np
+    import torch
+
+    from multithreadedgameengine_tpu_torch.state import make_world
+
+    rng = np.random.default_rng(seed)
+    w = make_world(n, device)
+
+    def t(v, dtype=torch.float32):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    on = t(np.ones(n, bool), torch.bool)
+    return w.replace(
+        transform=w.transform.replace(active=on, x=t(rng.uniform(-30, world[0] + 30, n)),
+                                      y=t(rng.uniform(-30, world[1] + 30, n))),
+        rigid_body=w.rigid_body.replace(active=on, static=t(rng.random(n) < 0.1, torch.bool)),
+        collider=w.collider.replace(active=t(rng.random(n) > 0.05, torch.bool),
+                                    is_trigger=t(rng.random(n) < 0.1, torch.bool),
+                                    radius=t(rng.uniform(3, 12, n))),
+    )
+
+
+#: the dense cases: (name, world, capacity, entities); every cell of the
+#: 30-unit grid gets about 5 (capacity 4) or 2 (capacity 64) times its
+#: capacity, so all are full
+DENSE_CASES = (("full_cap4", (240.0, 150.0), 4, 1400), ("full_cap64", (150.0, 120.0), 64, 5400))
+
+
+def dense_layout_args(device, world, cap, n):
+    """K2's input on a layout where every cell is full."""
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import build_layout
+    from multithreadedgameengine_tpu_torch.ops.spatial import GridGeom
+
+    w = dense_world(device, n, world, seed=cap)
+    lay = build_layout(w, GridGeom(cell_size=30.0, rows=int(world[1] // 30),
+                                   cols=int(world[0] // 30), capacity=cap))
+    check(bool(((lay.meta != 0).sum(0)[1:-1, 1:-1] == cap).all().item()),
+          f"dense layout {cap}: a cell is not full")
+    return (lay.scatter(w.transform.x), lay.scatter(w.transform.y), lay.radius, lay.meta,
+            cap, 0.8)
+
+
+def dense_grid_args(device, world, cap, n):
+    """K3's input on a bordered grid where every cell, border rows
+    included, is full."""
+    w = dense_world(device, n, world, seed=cap)
+    args = bordered_grid_args(w, 30.0, int(world[1] // 30), int(world[0] // 30), cap)
+    check(bool(((args[2][..., 2] != -1).sum(-1)[:, 1:-1] == cap).all().item()),
+          f"dense grid {cap}: a cell is not full")
+    return args
+
+
 def grid_bound(args, contacts: int):
     """The least time the card could take for one K3 pass over this grid,
     in ms, and what bounds it: the bytes the function must move (the flags
@@ -288,14 +354,8 @@ def synthetic_grid_args(device):
     full cell; two are left out)."""
     import torch
 
-    from multithreadedgameengine_tpu_torch.ops.physics_grid import (
-        pack_solver_rows,
-        scatter_solver_grid,
-    )
-    from multithreadedgameengine_tpu_torch.ops.spatial import GridGeom, bin_entities
     from multithreadedgameengine_tpu_torch.state import make_world
 
-    cell, R, C, cap = 30.0, 6, 10, 4
     pts = [
         # across the top seam (border row 0 holds y in [-30, 0))
         (50.0, 3.0, 6.0), (52.0, -6.0, 6.0), (120.0, -2.0, 5.0), (124.0, 5.0, 5.0),
@@ -317,20 +377,37 @@ def synthetic_grid_args(device):
     trig = torch.zeros(n, dtype=torch.bool, device=device)
     trig[7] = True
     on = torch.ones(n, dtype=torch.bool, device=device)
-    x, y = f32([p[0] for p in pts]), f32([p[1] for p in pts])
     w = w.replace(
-        transform=w.transform.replace(active=on, x=x, y=y),
+        transform=w.transform.replace(active=on, x=f32([p[0] for p in pts]),
+                                      y=f32([p[1] for p in pts])),
         rigid_body=w.rigid_body.replace(active=on, static=static),
         collider=w.collider.replace(active=on, is_trigger=trig,
                                     radius=f32([p[2] for p in pts])),
     )
-    # grid rows 0 .. R+1 (border rows included), then the port's flat slots
+    args = bordered_grid_args(w, 30.0, 6, 10, 4)
+    check(int((args[2][..., 2] != -1).sum().item()) == n - 2,
+          "synthetic grid: expected 2 over capacity")
+    return args
+
+
+def bordered_grid_args(w, cell, R, C, cap):
+    """K3's input from a world's active entities: binned as the halo step
+    bins (cell rank by id), into rows 0 .. R+1 of a bordered grid [R+2,
+    C+2, cap], border rows included; entities past capacity are left out."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import (
+        pack_solver_rows,
+        scatter_solver_grid,
+    )
+    from multithreadedgameengine_tpu_torch.ops.spatial import GridGeom, bin_entities
+
+    x, y, on = w.transform.x, w.transform.y, w.transform.active
     row = torch.clamp(torch.floor(y / cell).to(torch.int32) + 1, 0, R + 1)
     col = torch.clamp((x / cell).to(torch.int32), 0, C - 1)
     bins = bin_entities(x, y, on, GridGeom(cell_size=cell, rows=R + 2, cols=C, capacity=cap),
                         build_table=False, row=row, col=col)
-    ok = bins.rank < cap
-    check(int((~ok).sum().item()) == 2, "synthetic grid: expected 2 over capacity")
+    ok = on & (bins.rank < cap)
     flat = (bins.row.long() * (C + 2) + bins.col.long() + 1) * cap + bins.rank.long()
     grid = scatter_solver_grid(pack_solver_rows(w), torch.where(ok, flat, (R + 2) * (C + 2) * cap),
                                R, C, cap)
@@ -393,6 +470,9 @@ def halo_phase(dev):
     errs = [err]
     check(int(kc[1].sum().item() + kc[-2].sum().item()) > 0,
           "K3: no contact next to a border row of the synthetic grid")
+    for name, world, cap, n in DENSE_CASES:
+        errs.append(kernel_vs_plain(k3, k3_plain, name, dense_grid_args(dev, world, cap, n),
+                                    None)[0])
 
     # (b) the 1M halo rung: 4 slabs on one card
     halo_eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
@@ -473,8 +553,74 @@ def halo_phase(dev):
     check(all(same.values()), f"100k: the halo step and Engine.step differ: {same}")
     check(k3_c == 10 * subs * HALO_SLABS and k1_c == 10 * subs and k2_c == 0,
           f"100k: K3 {k3_c}, K1 {k1_c}, K2 {k2_c} launches")
+    del eh, es, chunks_c, a, b
+
+    # (d) K3 on a slab grid of the 10k demo scene
+    small = halo_slab_args(dev, dict(n_balls=N_MAIN - 1, seed=SEED))
+    err, (_x, _y, kc) = kernel_vs_plain(k3, k3_plain, "halo_10k_slab1", small, None)
+    errs.append(err)
+    k3_ms_10k, k3_plain_10k = time_kernel(k3, k3_plain, small)
+    bound_10k = grid_bound(small, int(kc.sum().item()))
+    log("timing", grid="halo_10k_slab1", shape=list(small[0].shape), k3_ms=k3_ms_10k,
+        k3_plain_ms=k3_plain_10k, bound_ms=bound_10k[0], bound_by=bound_10k[1])
     return dict(launches=k3_h, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound_k3,
-                shape=slab_shape, errs=errs)
+                shape=slab_shape, errs=errs, shape_10k=list(small[0].shape), ms_10k=k3_ms_10k,
+                plain_ms_10k=k3_plain_10k, bound_ms_10k=bound_10k[0])
+
+
+def halo_slab_args(dev, scene, frames=3):
+    """K3's input on slab 1 after ``frames`` frames of a balls scene on
+    ``HALO_SLABS`` slabs (``oversub`` 4)."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
+
+    eng = make_balls_engine(device=dev, **scene)
+    eng._flush_pending()
+    mesh = make_mesh(HALO_SLABS, dev)
+    step, place = make_halo_step(eng, mesh, oversub=4.0)
+    chunks = place(eng.world)
+    for _ in range(frames):
+        chunks, _m = step(chunks, eng.input.snapshot(dev))
+    return slab_grid_args(step, chunks, mesh)
+
+
+def k4_library(dev):
+    """The K4 probe's yardstick (``benchmarks/probe_expand_kernel.py:104-
+    135``): two zeroed ``[total]`` outputs and ``index_copy_`` of x and y at
+    ``flat``, with n = 1,000,000 entities and total = 66 x 131,072 slots,
+    ``flat`` distinct slots from a seeded permutation. Returns (library ms,
+    bound ms): the bound moves x, y, order and flat once (16 B an entity)
+    and writes both outputs (8 B a slot)."""
+    import torch
+
+    n, chunk = 1_000_000, 128 * 1024
+    total = (12 * 556 * 1280 // chunk + 1) * chunk
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flat = torch.randperm(total, generator=g, device=dev)[:n]
+    x = torch.randn(n, generator=g, device=dev)
+    y = torch.randn(n, generator=g, device=dev)
+
+    def scatter():
+        ox = torch.zeros(total, device=dev)
+        oy = torch.zeros(total, device=dev)
+        ox.index_copy_(0, flat, x)
+        oy.index_copy_(0, flat, y)
+        return ox, oy
+
+    ox, oy = scatter()
+    check(bool(torch.equal(ox[flat], x) and torch.equal(oy[flat], y))
+          and int((ox != 0).sum().item()) <= n, "K4 yardstick: scatter misplaced")
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            scatter()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / 20)
+    bound_ms = (16 * n + 8 * total) / PEAK_BYTES_S * 1e3
+    return statistics.median(times), bound_ms
 
 
 def main() -> int:
@@ -502,6 +648,10 @@ def main() -> int:
         cuda=torch.version.cuda, build_s=round(time.perf_counter() - t0, 3),
         nvcc_ran=",".join(fresh) or "none", flags="'" + " ".join(_build.NVCC_FLAGS) + "'",
         libraries=",".join(str(p.relative_to(_build.BUILD_DIR.parents[1])) for p in libs))
+    for lib in libs:
+        for line in _build.ptxas_report(lib).splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                print(f"[ptxas] {lib.name.rsplit('_', 1)[0]} {line.strip()}", flush=True)
     dev = torch.device("cuda")
     errs = {"K1": [], "K2": []}
 
@@ -530,6 +680,11 @@ def main() -> int:
             occupied = syn_args[3] != 0
             check(bool(((kx[occupied] >= 0) & (kx[occupied] <= 300.0)).all().item()),
                   "K2's folded clamp left a moving entity outside the world")
+    for name, world, cap, n in DENSE_CASES:
+        dense_args = dense_layout_args(dev, world, cap, n)
+        for cb in (None, world):
+            errs["K2"].append(kernel_vs_plain(k2, k2_plain, name, dense_args, max(world),
+                                              clamp_bounds=cb)[0])
     demo_shape = list(demo_args[0].shape)
     k1_ms_10k, k1_plain_10k = time_kernel(k1, k1_plain, demo_args)
     k2_ms_10k, k2_plain_10k = time_kernel(k2, k2_plain, demo_args)
@@ -653,6 +808,11 @@ def main() -> int:
     halo = halo_phase(dev)
     errs["K3"] = halo["errs"]
 
+    # 7. the K4 probe's yardstick
+    k4_ms, k4_bound = k4_library(dev)
+    log("k4_library", call="zeros + index_copy_ of x and y", entities=1_000_000,
+        slots=66 * 131_072, library_ms=k4_ms, bound_ms=k4_bound, bound_by="bytes")
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -672,7 +832,9 @@ def main() -> int:
                "plain_ms_10k": k2_plain_10k, "bound_ms_10k": bound_10k["K2"][0]}),
         entry("K3", ck.pair_pass_grid, "multithreadedgameengine_tpu_torch/csrc/pair_pass_grid.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:793", halo["launches"],
-              halo["ms"], halo["plain_ms"], halo["bound"], {"shape": halo["shape"]}),
+              halo["ms"], halo["plain_ms"], halo["bound"],
+              {"shape": halo["shape"], "shape_10k": halo["shape_10k"], "ms_10k": halo["ms_10k"],
+               "plain_ms_10k": halo["plain_ms_10k"], "bound_ms_10k": halo["bound_ms_10k"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

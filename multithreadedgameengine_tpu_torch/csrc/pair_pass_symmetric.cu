@@ -1,6 +1,7 @@
 // K2: one Jacobi pass of circle separation over the solver's slot-major
 // layout, in the occupancy-predicated Newton-symmetric form, optionally with
-// the world-boundary position clamp folded in.
+// the world-boundary position clamp folded in; a tiled pass over occupied
+// slots.
 //
 // Replaces the TPU kernel multithreadedgameengine_tpu/ops/pallas_kernels.py
 // `pair_pass_resident(symmetric=True)` -> `_resident_kernel_sym` ->
@@ -12,9 +13,9 @@
 //
 // On the GPU those reciprocal writes would race between threads. This
 // kernel does not use float atomics (their order, and so the sums, would
-// change from run to run). Instead one thread per slot computes everything
-// its slot receives, in the reference's per-slot order: for each forward
-// offset, for each neighbour plane j = 0..cap-1,
+// change from run to run). Instead one thread per occupied slot computes
+// everything its slot receives, in the reference's per-slot order: for each
+// forward offset, for each neighbour plane j ascending,
 //   1. its own push from the pair (self, slot j at +offset), when it takes
 //      the i side (p > j in the same cell, any p otherwise);
 //   2. when p == j, the back-sum: the reciprocal pushes of the slots at
@@ -25,23 +26,44 @@
 //
 // Predication: cells fill their slots rank-ascending (ranks follow the
 // entity id, so the only slot whose meta can be 0 while occupied is gid 0,
-// which is always rank 0). A thread therefore stops scanning a cell at its
-// first empty slot above plane 0. Skipped slots contribute exactly zero in
-// the reference, so this changes no value.
+// which is always rank 0). A cell's occupants therefore end at its first
+// slot above plane 0 whose meta is 0. Skipped slots contribute exactly zero
+// in the reference, so this changes no value.
 //
-// Clamp: with `clamp` set, every position the thread reads -- its own and
-// its neighbours' -- is first clamped to [r, extent - r] when the slot is
-// moving (meta flag 8), as the reference clamps its VMEM tile right after
-// the DMA; the output is clamped x + acc for every slot.
+// Clamp: with `clamp` set, every position the pass reads is first clamped
+// to [r, extent - r] when the slot is moving (meta flag 8), as the
+// reference clamps its VMEM tile right after the DMA; the output is clamped
+// x + acc for every slot.
 //
 // What bounds it on an H100: each pass must read x, y and meta and write
 // x, y and count for every slot (24 bytes), and read the radius of every
 // collider slot (4 bytes) -- about 0.19 GB at the 1M-ball layout
-// [12, 536, 1203] with 1M balls, about 57 us at 3.35 TB/s. The pair work
-// is below the card's rates; the neighbour reads, which hit L1/L2 because neighbouring
-// threads read neighbouring columns of one plane, are what the thread
-// waits on. Evaluating each pair once, with the reciprocal exchanged through
-// shared memory, is later work.
+// [12, 536, 1203] with 1M balls, about 57 us at 3.35 TB/s
+// (chip_smoke.py::bound). The pair work is below the card's float32 rate.
+//
+// The design (pair_tile.cuh):
+// - A block takes a tile of TR x TC interior cells and stages the tile and
+//   its one-cell ring (the box) in shared memory, plane by plane: meta, x,
+//   y and radius of every box slot, in one round of copies (a second round
+//   for only the occupied slots, after counting them, measured slower: the
+//   wait between the rounds costs more than the bytes it saves). Copies are
+//   4-byte cp.async: a layout row is (C+2) x 4 bytes, 4812 at the 1M
+//   layout, not a multiple of 16, so TMA, which needs 16-byte strides,
+//   cannot take the layout as it is, and the layout is not padded since
+//   the solver caches share it.
+// - One thread per box cell counts the cell's occupants. With `clamp`, each
+//   moving slot is then clamped once, in shared memory; the values equal
+//   clamping at every read.
+// - A block-wide prefix sum over the tile's counts gives every thread an
+//   occupied slot, which scans its 5 forward and 5 backward neighbour cells
+//   up to their counts, from shared memory, and keeps its result in shared
+//   memory.
+// - The block then writes x, y and count for every slot of its tile, and of
+//   the border cells next to it, in coalesced stores: `x + 0.0f` (so -0.0
+//   becomes +0.0 and NaN is kept) for slots that take part in no pair.
+//   Every output has one writer.
+// - Each pair is still evaluated by both of its slots; evaluating it once
+//   and handing the reciprocal over in shared memory is later work.
 //
 // Numerics: built with --fmad=false and without --use_fast_math; the
 // inverse distance is 1.0f / sqrtf(d2), so every operation rounds as the
@@ -50,24 +72,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_tile.cuh"
+
 namespace {
 
-__device__ __forceinline__ void pair_hash_dir(int32_t i, int32_t j,
-                                              uint32_t salt, float* ux,
-                                              float* uy) {
-  // ops/physics.py::_pair_hash_dir in native uint32 arithmetic.
-  uint32_t a = (uint32_t)min(i, j);
-  uint32_t b = (uint32_t)max(i, j);
-  uint32_t h = (a * 0x9E3779B1u) ^ (b * 0x85EBCA77u) ^ salt;
-  h = h ^ (h >> 15);
-  h = h * 0x2C1B3C6Du;
-  h = h ^ (h >> 12);
-  float hx = (float)(int32_t)(h & 0xFFFFu) - 32767.5f;
-  float hy = (float)(int32_t)((h >> 16) & 0xFFFFu) - 32767.5f;
-  float inv = 1.0f / sqrtf(hx * hx + hy * hy);
-  *ux = hx * inv;
-  *uy = hy * inv;
-}
+using namespace pair_tile;
+
+// shared-memory words of a box cell (meta, x, y and radius of each slot)
+// and of a tile cell (x, y and count out)
+size_t box_words(int cap) { return 4 * (size_t)cap; }
+size_t tile_words(int cap) { return 3 * (size_t)cap; }
+
+size_t g_granted[kMaxDevices];
 
 // The share factors of one slot: A = (1-trig)(1-static) and
 // B = (1-trig)(0.5+0.5*static) (pallas_kernels.py:285-302).
@@ -81,36 +97,8 @@ __device__ __forceinline__ float share_b(int32_t flags) {
   return nt * (0.5f + 0.5f * (float)((flags >> 2) & 1));
 }
 
-// torch.clamp(v, lo, hi) = min(max(v, lo), hi), NaN kept.
-__device__ __forceinline__ float clamp_to(float v, float lo, float hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
-}
-
-struct Layout {
-  const float* x;
-  const float* y;
-  const float* radius;
-  const int32_t* meta;
-  int clamp;
-  float w, h;
-
-  __device__ __forceinline__ void pos(int64_t t, int32_t m, float* px,
-                                      float* py) const {
-    float vx = x[t];
-    float vy = y[t];
-    if (clamp && ((m >> 24) & 8) != 0) {
-      const float r = radius[t];
-      vx = clamp_to(vx, r, w - r);
-      vy = clamp_to(vy, r, h - r);
-    }
-    *px = vx;
-    *py = vy;
-  }
-};
-
 // The pair (slot I, slot J), I on the i side: whether it overlaps and, if
-// so, the push on I (`*ix`, `*iy`) or, with `reciprocal`, the push on J.
+// so, the push on I (`*px`, `*py`) or, with `reciprocal`, the push on J.
 __device__ __forceinline__ bool pair_push(
     float xi, float yi, float ri, int32_t mi, float xj, float yj, float rj,
     int32_t mj, uint32_t salt, float strength, bool reciprocal, float* px,
@@ -147,114 +135,212 @@ __device__ __forceinline__ bool pair_push(
   return true;
 }
 
-__global__ void pair_pass_symmetric_kernel(
-    Layout L, float* __restrict__ new_x, float* __restrict__ new_y,
-    int32_t* __restrict__ count, int cap, int rows, int cols, uint32_t salt,
-    float strength) {
-  // rows/cols include the border: the layout is [cap, rows, cols]
-  const int64_t plane = (int64_t)rows * cols;
-  const int64_t total = plane * cap;
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= total) return;
+__global__ void __launch_bounds__(kThreads) pair_pass_symmetric_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ radius, const int32_t* __restrict__ meta,
+    float* __restrict__ new_x, float* __restrict__ new_y,
+    int32_t* __restrict__ count, int cap, int rows, int cols, int tile_rows,
+    int tile_cols, uint32_t salt, float strength, int clamp, float w,
+    float h) {
+  extern __shared__ __align__(16) float smem[];
+  const Box box(rows, cols, tile_rows, tile_cols);
+  const int nb = box.nb;
+  const int nt = box.nt;
+  const int plane = rows * cols;
+  int* sm = (int*)smem;              // [cap][nb] meta
+  float* sx = smem + cap * nb;       // [cap][nb]
+  float* sy = sx + cap * nb;         // [cap][nb]
+  float* sr = sy + cap * nb;         // [cap][nb]
+  float* rx = sr + cap * nb;         // [cap][nt]
+  float* ry = rx + cap * nt;         // [cap][nt]
+  int* rc = (int*)(ry + cap * nt);   // [cap][nt]
+  int* gcell = rc + cap * nt;        // [nb]
+  int* own = gcell + nb;             // [nb]
+  int* cnt = own + nb;               // [nb]
+  int* incl = cnt + nb;              // [nt]
+  int* wsum = incl + nt;             // [32]
 
-  const int p = (int)(s / plane);
-  const int c = (int)(s % cols);
-  const int r = (int)((s / cols) % rows);
-  const int32_t ms = L.meta[s];
-  float xs, ys;
-  L.pos(s, ms, &xs, &ys);
-  const bool interior = r >= 1 && r < rows - 1 && c >= 1 && c < cols - 1;
-  if (!interior || ((ms >> 24) & 1) == 0) {
-    // border, empty or non-collider slot: it takes part in no pair
-    new_x[s] = xs + 0.0f;
-    new_y[s] = ys + 0.0f;
-    count[s] = 0;
-    return;
+  // 1. meta, x, y and radius of every box slot (meta 0 outside the grid)
+  box.index_cells(gcell, own);
+  __syncthreads();
+  for (Walk wk(nb); wk.outer < cap; wk.next()) {
+    const int g = gcell[wk.inner];
+    const int e = wk.outer * nb + wk.inner;
+    if (g >= 0) {
+      const int gs = wk.outer * plane + g;
+      cp_async4(sm + e, meta + gs);
+      cp_async4(sx + e, x + gs);
+      cp_async4(sy + e, y + gs);
+      cp_async4(sr + e, radius + gs);
+    } else {
+      sm[e] = 0;
+    }
   }
+  cp_async_wait_all();
+  __syncthreads();
 
-  const float rs = L.radius[s];
-  const int64_t cell = s - (int64_t)p * plane;
-  float acc_x = 0.0f;
-  float acc_y = 0.0f;
-  int32_t acc_c = 0;
-
-  const int offs[5][2] = {{0, 0}, {0, 1}, {1, 0}, {1, 1}, {1, -1}};
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int dr = offs[k][0];
-    const int dc = offs[k][1];
-    const bool same_cell = k == 0;
-    const int64_t fwd = cell + (int64_t)dr * cols + dc;  // the j cell
-    const int64_t bwd = cell - (int64_t)dr * cols - dc;  // the back-sum's i cell
-    // the i side for neighbour planes j in [j0, j1): slot j at +offset.
-    // Returns false at the cell's first empty slot above plane 0.
-    auto i_side = [&](int j0, int j1) {
-      for (int j = j0; j < j1; ++j) {
-        const int64_t t = (int64_t)j * plane + fwd;
-        const int32_t mj = L.meta[t];
-        if (mj == 0) {
-          if (j > 0) return false;  // the rest of the cell is empty too
-          continue;
+  // 2. each box cell's occupants: the slots before its first empty slot
+  //    above plane 0 (none when planes 0 and 1 are both empty)
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    int n = 0;
+    if (sm[b] != 0 || (cap > 1 && sm[nb + b] != 0)) {
+      n = cap;
+      for (int j = 1; j < cap; ++j) {
+        if (sm[j * nb + b] == 0) {
+          n = j;
+          break;
         }
-        float xj, yj, px, py;
-        L.pos(t, mj, &xj, &yj);
-        if (pair_push(xs, ys, rs, ms, xj, yj, L.radius[t], mj, salt,
-                      strength, false, &px, &py)) {
-          acc_x = acc_x + px;
-          acc_y = acc_y + py;
-          acc_c += 1;
-        }
-      }
-      return true;
-    };
-    // 1. planes j before the back-sum's turn: j < p in the same cell (the
-    //    i side there is p > j), j <= p across cells
-    const bool more = i_side(0, same_cell ? p : p + 1);
-    // 2. j == p: the back-sum of the reciprocals from the slots at -offset
-    float b_x = 0.0f;
-    float b_y = 0.0f;
-    for (int i = same_cell ? p + 1 : 0; i < cap; ++i) {
-      const int64_t t = (int64_t)i * plane + bwd;
-      const int32_t mi = L.meta[t];
-      if (mi == 0) {
-        if (i > 0) break;
-        continue;
-      }
-      float xi, yi, px, py;
-      L.pos(t, mi, &xi, &yi);
-      if (pair_push(xi, yi, L.radius[t], mi, xs, ys, rs, ms, salt, strength,
-                    true, &px, &py)) {
-        b_x = b_x + px;
-        b_y = b_y + py;
-        acc_c += 1;
       }
     }
-    acc_x = acc_x + b_x;
-    acc_y = acc_y + b_y;
-    // 3. the remaining planes j > p (none in the same cell)
-    if (more && !same_cell) i_side(p + 1, cap);
+    cnt[b] = n;
   }
-  new_x[s] = xs + acc_x;
-  new_y[s] = ys + acc_y;
-  count[s] = acc_c;
+  __syncthreads();
+
+  // 3. with the clamp, each moving slot is clamped once, here
+  if (clamp) {
+    for (Walk wk(nb); wk.outer < cap; wk.next()) {
+      const int b = wk.inner;
+      const int e = wk.outer * nb + b;
+      if (gcell[b] >= 0 && (wk.outer < cnt[b] || own[b] != -2) && ((sm[e] >> 24) & 8) != 0) {
+        const float r = sr[e];
+        sx[e] = clamp_to(sx[e], r, w - r);
+        sy[e] = clamp_to(sy[e], r, h - r);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. hand out the tile's occupied slots
+  const int t_self = threadIdx.x;
+  int v = 0;
+  if (t_self < nt) {
+    const int b = box.box_cell(t_self);
+    if (own[b] >= 0) v = cnt[b];
+  }
+  const int inc = block_inclusive_scan(v, wsum);
+  if (t_self < nt) incl[t_self] = inc;
+  const int total = wsum[(blockDim.x >> 5) - 1];
+  __syncthreads();
+
+  // 5. one thread per occupied slot, in the reference's per-slot order
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int t = find_cell(incl, nt, k);
+    const int p = k - (t > 0 ? incl[t - 1] : 0);
+    const int q = box.box_cell(t);
+    const int s = p * nb + q;
+    const int32_t ms = sm[s];
+    const float xs = sx[s];
+    const float ys = sy[s];
+    float acc_x = 0.0f;
+    float acc_y = 0.0f;
+    int32_t acc_c = 0;
+    if (((ms >> 24) & 1) != 0) {
+      const float rs = sr[s];
+      // the i side for neighbour planes j in [j0, j1): slot j at +offset
+      auto i_side = [&](int fwd, int j0, int j1) {
+        for (int j = j0; j < j1; ++j) {
+          const int u = j * nb + fwd;
+          float px, py;
+          if (pair_push(xs, ys, rs, ms, sx[u], sy[u], sr[u], sm[u], salt,
+                        strength, false, &px, &py)) {
+            acc_x = acc_x + px;
+            acc_y = acc_y + py;
+            acc_c += 1;
+          }
+        }
+      };
+      // the forward offsets (0,0), (0,1), (1,0), (1,1), (1,-1); one copy
+      // of the body, not five, keeps the code small
+#pragma unroll 1
+      for (int o = 0; o < 5; ++o) {
+        const int dr = o >= 2 ? 1 : 0;
+        const int dc = (o == 1 || o == 3) ? 1 : (o == 4 ? -1 : 0);
+        const int step = dr * box.bc + dc;
+        const bool same_cell = o == 0;
+        const int fwd = q + step;  // the j cell
+        const int bwd = q - step;  // the back-sum's i cell
+        const int n_fwd = cnt[fwd];
+        // 1. planes j before the back-sum's turn: j < p in the same cell
+        //    (the i side there is p > j), j <= p across cells
+        i_side(fwd, 0, min(same_cell ? p : p + 1, n_fwd));
+        // 2. j == p: the back-sum of the reciprocals from the slots at -offset
+        float b_x = 0.0f;
+        float b_y = 0.0f;
+        for (int i = same_cell ? p + 1 : 0; i < cnt[bwd]; ++i) {
+          const int u = i * nb + bwd;
+          float px, py;
+          if (pair_push(sx[u], sy[u], sr[u], sm[u], xs, ys, rs, ms, salt,
+                        strength, true, &px, &py)) {
+            b_x = b_x + px;
+            b_y = b_y + py;
+            acc_c += 1;
+          }
+        }
+        acc_x = acc_x + b_x;
+        acc_y = acc_y + b_y;
+        // 3. the remaining planes j > p (none in the same cell)
+        if (!same_cell) i_side(fwd, p + 1, n_fwd);
+      }
+    }
+    const int out = p * nt + t;
+    rx[out] = xs + acc_x;
+    ry[out] = ys + acc_y;
+    rc[out] = acc_c;
+  }
+  __syncthreads();
+
+  // 6. every slot of the tile and of its border cells, in coalesced stores
+  for (Walk wk(nb); wk.outer < cap; wk.next()) {
+    const int b = wk.inner;
+    const int t = own[b];
+    if (t == -2) continue;  // outside the grid, or another tile's
+    const int e = wk.outer * nb + b;
+    const int g = wk.outer * plane + gcell[b];
+    if (t >= 0 && wk.outer < cnt[b]) {
+      const int o = wk.outer * nt + t;
+      new_x[g] = rx[o];
+      new_y[g] = ry[o];
+      count[g] = rc[o];
+    } else {
+      // a slot that takes part in no pair (border, empty)
+      new_x[g] = sx[e] + 0.0f;
+      new_y[g] = sy[e] + 0.0f;
+      count[g] = 0;
+    }
+  }
 }
 
 }  // namespace
 
+// The largest capacity the kernel stages (a 1 x 1 tile in the current
+// device's shared memory), or -1 with the CUDA error unread.
+extern "C" int pair_pass_symmetric_max_cap() {
+  size_t max_smem = 0;
+  if (device_max_smem(&max_smem) != cudaSuccess) return -1;
+  return max_capacity(box_words, tile_words, max_smem);
+}
+
 // Plain C entry point for ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it neither allocates nor synchronises.
+// cudaGetLastError() (0 on success), or the error of the shared-memory
+// attribute; it neither allocates nor synchronises.
 extern "C" int pair_pass_symmetric_launch(
     const float* x, const float* y, const float* radius, const int32_t* meta,
     float* new_x, float* new_y, int32_t* count, int cap, int rows, int cols,
     uint32_t salt, float strength, int clamp, float clamp_w, float clamp_h,
     void* stream) {
-  const int64_t total = (int64_t)cap * rows * cols;
-  if (total <= 0) return 0;
-  const Layout L{x, y, radius, meta, clamp, clamp_w, clamp_h};
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  pair_pass_symmetric_kernel<<<(unsigned int)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-      L, new_x, new_y, count, cap, rows, cols, salt, strength);
+  if (rows < 3 || cols < 3 || cap < 1) return (int)cudaErrorInvalidValue;
+  size_t max_smem = 0;
+  cudaError_t err = device_max_smem(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  TilePlan plan;
+  if (!plan_tile(box_words(cap), tile_words(cap), max_smem, &plan)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((cols - 2 + plan.tc - 1) / plan.tc),
+                  (unsigned)((rows - 2 + plan.tr - 1) / plan.tr));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  err = allow_smem(pair_pass_symmetric_kernel, plan.smem, g_granted);
+  if (err != cudaSuccess) return (int)err;
+  pair_pass_symmetric_kernel<<<grid, kThreads, plan.smem, (cudaStream_t)stream>>>(
+      x, y, radius, meta, new_x, new_y, count, cap, rows, cols, plan.tr,
+      plan.tc, salt, strength, clamp, clamp_w, clamp_h);
   return (int)cudaGetLastError();
 }

@@ -3,12 +3,14 @@
 The sources are the ``.cu`` files under ``multithreadedgameengine_tpu_torch/
 csrc``. They are compiled at first use, never at import, into
 ``build/kernels/`` at the checkout's root (listed in ``.gitignore``): one
-library per source, named by a hash of that source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached library. The
-nvcc runs for all sources start together and run in parallel. Each library
-exposes plain C functions that ``ops/cuda_kernels.py`` binds with
-``ctypes``; nothing here includes PyTorch's headers, which keeps a build to
-seconds.
+library per source, named by a hash of that source, every ``csrc/*.cuh``
+header and the flags, so an edited source or header rebuilds and an
+unchanged one loads the cached library. The nvcc runs for all sources start
+together and run in parallel; each one's ``-Xptxas -v`` report (registers,
+shared memory and spills of every kernel) is kept beside its library as
+``<library>.ptxas.txt``. Each library exposes plain C functions that
+``ops/cuda_kernels.py`` binds with ``ctypes``; nothing here includes
+PyTorch's headers, which keeps a build to seconds.
 
 A missing ``nvcc`` or a failed compile raises: there is no fallback.
 """
@@ -32,21 +34,24 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-#: the C entry point of each source and its argument types
+#: the C functions of each source: (name, argument types, result type)
 ENTRY_POINTS = {
-    "pair_pass_grid.cu": ("pair_pass_grid_launch", [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P,
-    ]),
-    "pair_pass_resident.cu": ("pair_pass_resident_launch", [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P,
-    ]),
-    "pair_pass_symmetric.cu": ("pair_pass_symmetric_launch", [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _I, _F, _F, _P,
-    ]),
+    "pair_pass_grid.cu": (
+        ("pair_pass_grid_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),
+        ("pair_pass_grid_max_cap", [], _I),
+    ),
+    "pair_pass_resident.cu": (
+        ("pair_pass_resident_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),
+    ),
+    "pair_pass_symmetric.cu": (
+        ("pair_pass_symmetric_launch",
+         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _I, _F, _F, _P], _I),
+        ("pair_pass_symmetric_max_cap", [], _I),
+    ),
 }
 
 
@@ -71,11 +76,19 @@ def _sources() -> list[Path]:
 
 
 def library_path(src: Path) -> Path:
-    """Where the library for ``src`` and the current flags lives."""
+    """Where the library for ``src``, the headers beside it and the current
+    flags lives: every ``*.cuh`` of ``src``'s directory is hashed in, since
+    any source may include any of them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for f in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(lib: Path) -> str:
+    """The ``-Xptxas -v`` report nvcc printed when it built ``lib``."""
+    return lib.with_name(lib.name + ".ptxas.txt").read_text()
 
 
 def missing() -> list[Path]:
@@ -106,6 +119,7 @@ def build() -> list[Path]:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                               f"{stdout}\n{stderr}")
             else:
+                out.with_name(out.name + ".ptxas.txt").write_text(stdout + stderr)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -122,10 +136,11 @@ def load() -> types.SimpleNamespace:
     if _lib is None:
         fns = {}
         for path, src in zip(build(), _sources()):
-            name, argtypes = ENTRY_POINTS[src.name]
-            fn = getattr(ctypes.CDLL(str(path)), name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[name] = fn
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes, restype in ENTRY_POINTS[src.name]:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                fns[name] = fn
         _lib = types.SimpleNamespace(**fns)
     return _lib

@@ -19,6 +19,12 @@ K3 replaces ``pallas_kernels.py::pair_pass_pallas``, the legacy grid pass of
 reference's bordered grid ``[R+2, C+2, cap]`` with its border rows read as
 neighbours.
 
+K2 and K3 are tiled passes over occupied slots: a block stages a tile of
+cells and its one-cell ring in shared memory, sized so that every cell may
+be full, and hands each thread one occupied slot (``csrc/pair_tile.cuh``).
+A capacity above what the smallest tile stages is refused with a
+``ValueError``.
+
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
 
@@ -60,6 +66,27 @@ def _check_layout(x: Tensor, y: Tensor, radius: Tensor, meta: Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
     if x.numel() >= 2**31:
         raise ValueError("layout too large for int32 kernel arguments")
+
+
+_max_caps = {}
+
+
+def _check_capacity(lib, kernel: str, cap: int, device: torch.device) -> None:
+    """Raise ``ValueError`` when ``cap`` slots a cell exceed what the
+    kernel's smallest tile (one cell and its ring) stages in the device's
+    shared memory; the limit is the kernel's own, read once per device."""
+    key = (kernel, device.index)
+    if key not in _max_caps:
+        limit = getattr(lib, f"{kernel}_max_cap")()
+        if limit < 0:
+            raise RuntimeError(f"{kernel}: could not read the device's shared-memory limit")
+        _max_caps[key] = limit
+    limit = _max_caps[key]
+    if cap > limit:
+        raise ValueError(
+            f"{kernel}: capacity {cap} is above {limit}, the most slots a cell the "
+            f"kernel's smallest tile (one cell and its ring) stages in {device}'s "
+            f"shared memory")
 
 
 def pair_pass_resident_plain(
@@ -291,7 +318,8 @@ def pair_pass_symmetric(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """One K2 pass (see :func:`pair_pass_symmetric_plain` for the contract).
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise if the launch is refused."""
+    current stream and raise if the launch is refused, or ``ValueError``
+    for a capacity above the kernel's limit."""
     _check_layout(x, y, radius, meta)
     if x.device.type == "cpu":
         return pair_pass_symmetric_plain(x, y, radius, meta, salt, strength,
@@ -308,6 +336,7 @@ def pair_pass_symmetric(
     clamp = clamp_bounds is not None
     w, h = (float(clamp_bounds[0]), float(clamp_bounds[1])) if clamp else (0.0, 0.0)
     with torch.cuda.device(x.device):
+        _check_capacity(lib, "pair_pass_symmetric", cap, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pair_pass_symmetric_launch(
             x.data_ptr(), y.data_ptr(), radius.data_ptr(), meta.data_ptr(),
@@ -418,7 +447,8 @@ def pair_pass_grid(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """One K3 pass (see :func:`pair_pass_grid_plain` for the contract). CPU
     tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise if the launch is refused."""
+    current stream and raise if the launch is refused, or ``ValueError``
+    for a capacity above the kernel's limit."""
     _check_grid(x, y, attrs)
     if x.device.type == "cpu":
         return pair_pass_grid_plain(x, y, attrs, salt, strength)
@@ -432,6 +462,7 @@ def pair_pass_grid(
     disp_y = torch.empty_like(y)
     count = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
+        _check_capacity(lib, "pair_pass_grid", cap, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pair_pass_grid_launch(
             x.data_ptr(), y.data_ptr(), attrs.data_ptr(),

@@ -1,7 +1,10 @@
-"""K1 and K2 on the card: each CUDA kernel against its plain PyTorch
-version (K2 with and without the folded clamp), the wrappers' checks and
-launch counts, and the ported slices on ``cuda`` against the same slices on
-``cpu``. Marked ``cuda``; each test skips without a card.
+"""K1, K2 and K3 on the card: each CUDA kernel against its plain PyTorch
+version (K2 with and without the folded clamp), the edges of the tiled
+passes K2 and K3 (full cells, non-colliders among a cell's occupants, grids
+that are ragged against the tile or narrower than it, capacities 1 to 64,
+the capacity limit), the wrappers' checks and launch counts, and the ported
+slices on ``cuda`` against the same slices on ``cpu``. Marked ``cuda``;
+each test skips without a card.
 On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``
 (``--noconftest`` because the test directory's conftest sets up JAX, which
@@ -155,6 +158,102 @@ def test_k3_matches_plain_on_card(cuda, seed, n, cap):
     tol = 2 * float(np.spacing(np.float32(scale)))
     assert (kx - px).abs().max().item() <= tol
     assert (ky - py).abs().max().item() <= tol
+
+
+def assert_bit_equal(got, want):
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+#: the tiled passes' edge cases: (id, entities, capacity, world), 30-unit
+#: cells; "full" ones fill every cell of the world
+EDGE_CASES = [
+    ("cap1", 300, 1, (600.0, 400.0)),
+    ("cap4_full", 1600, 4, (240.0, 150.0)),
+    ("cap12_ragged", 3000, 12, (630.0, 390.0)),
+    ("cap16_narrow", 600, 16, (60.0, 450.0)),
+    ("cap16_one_row", 400, 16, (1000.0, 30.0)),
+    ("cap64_full", 5400, 64, (150.0, 120.0)),
+]
+
+
+@pytest.mark.parametrize("name,n,cap,world", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_k3_edges_bit_equal_on_card(cuda, name, n, cap, world):
+    """K3 equals its plain version bit for bit on the tiled pass's edges."""
+    args = random_grid(cap, n, cap, cuda, world=world)
+    gid, flags = args[2][..., 2], args[2][..., 1].to(torch.int32)
+    occ = gid != -1
+    if "full" in name:
+        assert bool((occ.sum(-1)[:, 1:-1] == cap).all())
+        # an occupied slot without a collider before an occupied collider slot
+        no_coll = occ & ((flags & 1) == 0)
+        assert bool((no_coll[..., :-1] & ((flags[..., 1:] & 1) == 1)).any())
+    got = cuda_kernels.pair_pass_grid(*args)
+    want = cuda_kernels.pair_pass_grid_plain(*args)
+    torch.cuda.synchronize()
+    assert int(want[2].sum()) > 0
+    assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("clamp", [False, True], ids=["noclamp", "clamp"])
+@pytest.mark.parametrize("name,n,cap,world", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_k2_edges_bit_equal_on_card(cuda, name, n, cap, world, clamp):
+    """K2 equals its plain version bit for bit on the tiled pass's edges,
+    with and without the folded clamp."""
+    args = random_layout(cap, n, cap, cuda, world=world)
+    meta = args[3]
+    occ = meta != 0
+    if "full" in name:
+        world_cells = int(world[0] // 30) * int(world[1] // 30)
+        assert int((occ.sum(0) == cap).sum()) >= world_cells
+        no_coll = occ & (((meta >> 24) & 1) == 0)
+        assert bool((no_coll[:-1] & (((meta[1:] >> 24) & 1) == 1)).any())
+    bounds = world if clamp else None
+    got = pair_pass_symmetric(*args, clamp_bounds=bounds)
+    want = pair_pass_symmetric_plain(*args, clamp_bounds=bounds)
+    torch.cuda.synchronize()
+    assert int(want[2].sum()) > 0
+    assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["grid", "symmetric"])
+def test_capacity_limit_on_card(cuda, kernel):
+    """At its capacity limit (a 1 x 1 tile in nearly all of the block's
+    shared memory) the tiled pass runs and equals its plain version; one
+    slot more raises ValueError naming the limit."""
+    from multithreadedgameengine_tpu_torch.ops import _build
+
+    limit = getattr(_build.load(), f"pair_pass_{kernel}_max_cap")()
+    assert limit >= 64
+    for cap in (limit, limit + 1):
+        if kernel == "grid":
+            x = torch.zeros((3, 3, cap), device=cuda)
+            x[1, 1, :2] = torch.tensor([10.0, 12.0])
+            attrs = torch.zeros((3, 3, cap, 3), device=cuda)
+            attrs[..., 2] = -1.0
+            attrs[1, 1, :2] = torch.tensor([[5.0, 1.0, 0.0], [5.0, 1.0, 1.0]])
+            args = (x, torch.zeros_like(x), attrs, 3, 0.8)
+            fn, plain = cuda_kernels.pair_pass_grid, cuda_kernels.pair_pass_grid_plain
+        else:
+            x = torch.zeros((cap, 3, 3), device=cuda)
+            x[:2, 1, 1] = torch.tensor([10.0, 12.0])
+            radius = torch.zeros_like(x)
+            radius[:2, 1, 1] = 5.0
+            meta = torch.zeros((cap, 3, 3), dtype=torch.int32, device=cuda)
+            meta[:2, 1, 1] = torch.tensor([1 << 24, 1 | (1 << 24)], dtype=torch.int32)
+            args = (x, torch.zeros_like(x), radius, meta, 3, 0.8)
+            fn, plain = pair_pass_symmetric, pair_pass_symmetric_plain
+        if cap > limit:
+            with pytest.raises(ValueError, match=f"capacity {cap} is above {limit}"):
+                fn(*args)
+        else:
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            assert int(want[2].sum()) == 2
+            assert_bit_equal(got, want)
 
 
 def test_halo_step_on_card_matches_cpu(cuda):

@@ -62,13 +62,37 @@ def test_port_runs_two_frames_without_jax():
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(REPO) for p in PORT.rglob("*.py"))
-    + [Path("chip_smoke.py"), Path("torch_profile.py")],
+    + [Path("chip_smoke.py"), Path("torch_profile.py"), Path("kernel_ab.py")],
     ids=str,
 )
 def test_source_has_no_jax_import(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|multithreadedgameengine_tpu)\b",
                          text, re.M)
+
+
+def test_library_path_follows_the_headers(tmp_path):
+    """A kernel's cached library is named by its source, every ``csrc/*.cuh``
+    header and the flags: a copy of ``csrc`` names the same libraries, and
+    an edit to a header renames every source's library (so a stale one is
+    never loaded). No nvcc is run."""
+    import shutil
+
+    from multithreadedgameengine_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    sources = sorted(p.name for p in csrc.glob("*.cu"))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert sources == sorted(_build.ENTRY_POINTS) and headers
+    before = {s: _build.library_path(csrc / s) for s in sources}
+    assert before == {s: _build.library_path(_build.CSRC / s) for s in sources}
+    (csrc / "notes.txt").write_text("not a header")
+    assert before == {s: _build.library_path(csrc / s) for s in sources}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {s: _build.library_path(csrc / s) for s in sources}
+    assert all(after[s] != before[s] for s in sources)
+    assert all(after[s].parent == _build.BUILD_DIR for s in sources)
 
 
 def _fields(cls):
