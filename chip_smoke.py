@@ -13,11 +13,12 @@ Phases, each printing one line or more before the last:
 2. kernel parity: K1 (the two-sided pair pass) and K2 (the predicated
    Newton-symmetric pass, with and without its folded boundary clamp)
    against their plain PyTorch versions on the card, on the demo scene's
-   layout after 30 frames and on a synthetic layout with statics, a trigger,
+   layout after 30 frames, on a synthetic layout with statics, a trigger,
    a world-edge pile, a coincident pair, a full cell and moving slots
-   outside the world; K2 also on two dense layouts where every cell is full
+   outside the world, and on two dense layouts where every cell is full
    (capacity 4 and 64, with occupied slots that hold no collider); then both
-   kernels timed with CUDA events;
+   kernels timed, and K1 timed eager beside its graph time (what the host
+   adds to a launch at this size);
 3. slice A's main path: the ``bench.py`` scene (10,000 balls, seed 123456)
    for 10 + 120 frames through ``Engine.step``, with the launch count of
    every kernel over exactly that run (K1 only: the reference's gate picks
@@ -52,9 +53,12 @@ Phases, each printing one line or more before the last:
    ``benchmarks/probe_expand_kernel.py`` checks its kernel against, at the
    probe's shapes, timed on its own ``[k4_library]`` line.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises, exits
-non-zero and prints no result. Without a CUDA device it exits 1 at once.
+Kernel times are CUDA events around one replay of a CUDA graph of 50-200
+launches (the kernel's own time; the wrapper's host cost is not in it);
+plain versions run eager. The line before the last is a JSON object with
+one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises, exits non-zero and prints no result. Without a CUDA
+device it exits 1 at once.
 This script imports nothing of JAX.
 """
 
@@ -151,28 +155,64 @@ def kernel_vs_plain(kernel, plain, name, args, extent, **kw):
     return err, (kx, ky, kc)
 
 
-def time_kernel(kernel, plain, args, kernel_reps=200, plain_reps=5, **kw):
-    """Median ms of a kernel and of its plain version, in turns plain,
-    kernel, kernel, plain, with CUDA events around many launches."""
+def events_ms(run, reps: int) -> float:
+    """ms per launch of ``run()``, which issues ``reps`` launches, between
+    two CUDA events."""
     import torch
 
-    def run(fn, reps):
-        fn(*args, **kw)
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def eager_timer(fn, args, reps, **kw):
+    """A timer of ``reps`` eager calls of ``fn``, each through its Python
+    wrapper: what the host adds to every launch is in it."""
+    import torch
+
+    def run():
         for _ in range(reps):
             fn(*args, **kw)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
 
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    return lambda: events_ms(run, reps)
+
+
+def graph_timer(fn, args, reps, **kw):
+    """A timer of one replay of a CUDA graph holding ``reps`` launches of
+    ``fn``: the kernels' own time, without the host's. An eager warm-up
+    launch first sets the kernel's shared-memory attribute and reads its
+    capacity limit outside the capture. Replays do not pass through the
+    wrapper, so they add nothing to its launch count."""
+    import torch
+
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    return lambda: events_ms(graph.replay, reps)
+
+
+def time_kernel(kernel, plain, args, kernel_reps=200, plain_reps=5, **kw):
+    """Median ms of a kernel (graph replay) and of its plain version
+    (eager: it reads values on the host, so it cannot be captured), in
+    turns plain, kernel, kernel, plain, twice."""
+    plain_run = eager_timer(plain, args, plain_reps, **kw)
+    kern_run = graph_timer(kernel, args, kernel_reps, **kw)
     plain_t, kern_t = [], []
     for _ in range(2):
-        plain_t.append(run(plain, plain_reps))
-        kern_t.append(run(kernel, kernel_reps))
-        kern_t.append(run(kernel, kernel_reps))
-        plain_t.append(run(plain, plain_reps))
+        plain_t.append(plain_run())
+        kern_t.append(kern_run())
+        kern_t.append(kern_run())
+        plain_t.append(plain_run())
     return statistics.median(kern_t), statistics.median(plain_t)
 
 
@@ -299,7 +339,7 @@ DENSE_CASES = (("full_cap4", (240.0, 150.0), 4, 1400), ("full_cap64", (150.0, 12
 
 
 def dense_layout_args(device, world, cap, n):
-    """K2's input on a layout where every cell is full."""
+    """K1's and K2's input on a layout where every cell is full."""
     from multithreadedgameengine_tpu_torch.ops.physics_grid import build_layout
     from multithreadedgameengine_tpu_torch.ops.spatial import GridGeom
 
@@ -682,14 +722,25 @@ def main() -> int:
                   "K2's folded clamp left a moving entity outside the world")
     for name, world, cap, n in DENSE_CASES:
         dense_args = dense_layout_args(dev, world, cap, n)
+        errs["K1"].append(kernel_vs_plain(k1, k1_plain, name, dense_args, max(world))[0])
         for cb in (None, world):
             errs["K2"].append(kernel_vs_plain(k2, k2_plain, name, dense_args, max(world),
                                               clamp_bounds=cb)[0])
     demo_shape = list(demo_args[0].shape)
     k1_ms_10k, k1_plain_10k = time_kernel(k1, k1_plain, demo_args)
     k2_ms_10k, k2_plain_10k = time_kernel(k2, k2_plain, demo_args)
+    # what the host adds: K1 eager, one wrapper call a launch, beside its graph time
+    eager, graphed = eager_timer(k1, demo_args, 200), graph_timer(k1, demo_args, 200)
+    t_eager, t_graph = [], []
+    for _ in range(2):
+        t_eager.append(eager())
+        t_graph += [graphed(), graphed()]
+        t_eager.append(eager())
+    k1_eager_10k, k1_graph_10k = statistics.median(t_eager), statistics.median(t_graph)
+    del eager, graphed
     log("timing", layout="demo_10k", shape=demo_shape, k1_ms=k1_ms_10k,
-        k1_plain_ms=k1_plain_10k, k2_ms=k2_ms_10k, k2_plain_ms=k2_plain_10k)
+        k1_plain_ms=k1_plain_10k, k2_ms=k2_ms_10k, k2_plain_ms=k2_plain_10k,
+        k1_eager_ms=k1_eager_10k, k1_graph_ms=k1_graph_10k)
     bound_10k = {"K1": bound(demo_args, contacts_10k, False),
                  "K2": bound(demo_args, contacts_10k, True)}
     del scene, demo_args
@@ -823,8 +874,9 @@ def main() -> int:
         entry("K1", k1, "multithreadedgameengine_tpu_torch/csrc/pair_pass_resident.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:654", k1_main,
               k1_ms_10k, k1_plain_10k, bound_10k["K1"],
-              {"shape": demo_shape, "shape_1m": big_shape, "ms_1m": k1_ms_1m,
-               "plain_ms_1m": k1_plain_1m, "bound_ms_1m": bound_1m["K1"][0]}),
+              {"shape": demo_shape, "eager_ms": k1_eager_10k, "shape_1m": big_shape,
+               "ms_1m": k1_ms_1m, "plain_ms_1m": k1_plain_1m,
+               "bound_ms_1m": bound_1m["K1"][0]}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],

@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""A/B of the tiled pair passes K2 and K3 against an earlier version of
+"""A/B of the tiled pair passes K1, K2 and K3 against other versions of
 their sources, on one NVIDIA GPU.
 
     python3 kernel_ab.py --old DIR [DIR ...] [--ablate DIR ...] [--out build/kernel_ab.json]
 
-Each ``DIR`` holds another version of ``pair_pass_grid.cu`` and
-``pair_pass_symmetric.cu`` (and any header they include), for example
-taken out of git with ``git show <commit>:multithreadedgameengine_tpu_torch/
-csrc/pair_pass_grid.cu``; their C launch functions must take the current
-ones' arguments. ``--ablate`` takes versions that compute something else
-(the current sources with a phase cut out, to price that phase): they are
-timed the same way but not checked. All are built with ``ops/_build.py``'s
-nvcc flags, one nvcc per source in parallel, and each library's
-``-Xptxas -v`` lines are printed. Then, for each kernel and shape -- K3 on slab 1 of the
-1M halo rung and of the 10k demo scene (4 slabs, 3 frames), K2 with its
-folded clamp on the 1M ladder layout and without it on the 10k demo layout
+Each ``DIR`` holds another version of some of ``pair_pass_resident.cu``,
+``pair_pass_grid.cu`` and ``pair_pass_symmetric.cu`` (and any header they
+include), for example taken out of git with ``git show <commit>:
+multithreadedgameengine_tpu_torch/csrc/pair_pass_grid.cu``; their C launch
+functions must take the current ones' arguments. ``--ablate`` takes
+versions that compute something else (the current sources with a phase cut
+out, to price that phase): they are timed the same way but not checked. All
+are built with ``ops/_build.py``'s nvcc flags, one nvcc per source in
+parallel, and each library's ``-Xptxas -v`` lines are printed. Then, for
+each kernel and shape -- K3 on slab 1 of the 1M halo rung and of the 10k
+demo scene (4 slabs, 3 frames), K2 with its folded clamp on the 1M ladder
+layout and without it on the 10k demo layout, K1 on the same two layouts
 (``chip_smoke.py``'s scenes) -- it checks that each old kernel, the new one
-and the plain version agree bit for bit, and times each old one against the
-new one in turns (old, new, new, old, twice; CUDA events around 50-200
-launches), printing each median beside the bound from ``chip_smoke.py``.
-The last line is a JSON object of the results, also written to ``--out``.
-Imports nothing of JAX.
+and the plain version agree bit for bit, prints the tile the new kernel
+takes there (``cuda_kernels.tile_of``), and times each old one against the
+new one in turns (old, new, new, old, twice), each turn one replay of a
+CUDA graph of 50-200 launches between CUDA events (``chip_smoke.
+graph_timer``), printing each median beside the bound from
+``chip_smoke.py``. A directory without a kernel's source skips that
+kernel's cases. The last line is a JSON object of the results, also written
+to ``--out``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,12 +38,12 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-SOURCES = ("pair_pass_grid.cu", "pair_pass_symmetric.cu")
+SOURCES = ("pair_pass_grid.cu", "pair_pass_resident.cu", "pair_pass_symmetric.cu")
 
 
 def build_old(old_dir: Path):
-    """Build the sources of ``old_dir`` into ``build/kernels_ab/``; returns
-    their launch functions by name and their ptxas reports."""
+    """Build the sources ``old_dir`` holds into ``build/kernels_ab/``;
+    returns their launch functions by name and their ptxas reports."""
     import ctypes
 
     from multithreadedgameengine_tpu_torch.ops import _build
@@ -47,7 +51,7 @@ def build_old(old_dir: Path):
     out_dir = _build.BUILD_DIR.parent / "kernels_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name in SOURCES:
+    for name in (n for n in SOURCES if (old_dir / n).is_file()):
         lib = out_dir / f"lib{Path(name).stem}_{old_dir.name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(old_dir / name)]
         jobs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -66,7 +70,8 @@ def build_old(old_dir: Path):
 
 
 def old_wrappers(fns):
-    """The old launch functions behind the current wrappers' signatures."""
+    """The old launch functions behind the current wrappers' signatures,
+    by the current wrapper's name, for the kernels ``fns`` holds."""
     import torch
 
     def launch(fn, *args):
@@ -84,6 +89,14 @@ def old_wrappers(fns):
                int(salt) & 0xFFFFFFFF, float(strength))
         return dx, dy, c
 
+    def pair_pass_resident_old(x, y, radius, meta, salt, strength):
+        cap, rows, cols = x.shape
+        nx, ny = torch.empty_like(x), torch.empty_like(y)
+        c = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        launch(fns["pair_pass_resident_launch"], x, y, radius, meta, nx, ny, c, cap, rows, cols,
+               int(salt) & 0xFFFFFFFF, float(strength))
+        return nx, ny, c
+
     def pair_pass_symmetric_old(x, y, radius, meta, salt, strength, clamp_bounds=None):
         cap, rows, cols = x.shape
         nx, ny = torch.empty_like(x), torch.empty_like(y)
@@ -94,7 +107,10 @@ def old_wrappers(fns):
                float(w), float(h))
         return nx, ny, c
 
-    return pair_pass_grid_old, pair_pass_symmetric_old
+    wrappers = {"pair_pass_grid": pair_pass_grid_old,
+                "pair_pass_resident": pair_pass_resident_old,
+                "pair_pass_symmetric": pair_pass_symmetric_old}
+    return {k: f for k, f in wrappers.items() if f"{k}_launch" in fns}
 
 
 def bit_equal(a, b) -> bool:
@@ -104,26 +120,15 @@ def bit_equal(a, b) -> bool:
 
 
 def time_ab(old, new, args, reps, **kw):
-    """Median ms of the old and the new kernel, in turns old, new, new, old."""
-    import torch
-
-    def run(fn):
-        fn(*args, **kw)
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn(*args, **kw)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
+    """Median ms of the old and the new kernel, each from a CUDA graph of
+    ``reps`` launches, in turns old, new, new, old, twice."""
+    run_old = cs.graph_timer(old, args, reps, **kw)
+    run_new = cs.graph_timer(new, args, reps, **kw)
     t_old, t_new = [], []
     for _ in range(2):
-        t_old.append(run(old))
-        t_new.append(run(new))
-        t_new.append(run(new))
-        t_old.append(run(old))
+        t_old.append(run_old())
+        t_new += [run_new(), run_new()]
+        t_old.append(run_old())
     return statistics.median(t_old), statistics.median(t_new)
 
 
@@ -147,8 +152,7 @@ def main() -> int:
     ck = cs.kernels()
     new_libs = _build.build()
     _build.load()
-    reports = {p.name: _build.ptxas_report(p) for p in new_libs
-               if p.name.startswith(("libpair_pass_grid", "libpair_pass_symmetric"))}
+    reports = {p.name: _build.ptxas_report(p) for p in new_libs}
     olds = {}  # name -> (wrappers, checked against the new kernel)
     for old_dir in [*args.old, *args.ablate]:
         fns, old_reports = build_old(old_dir)
@@ -167,34 +171,45 @@ def main() -> int:
 
     ladder = dict(n_balls=1_000_000, seed=cs.SEED, world_width=90_000.0,
                   world_height=40_000.0, physics=cs.LADDER_PHYSICS)
+    demo = dict(n_balls=cs.N_MAIN, seed=cs.SEED)
     cases = [
-        ("K3", "halo_1m_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain, 0,
+        ("K3", "halo_1m_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain,
          lambda: cs.halo_slab_args(dev, dict(n_balls=cs.HALO_N - 1, seed=cs.SEED,
                                              world_width=cs.HALO_WORLD[0],
                                              world_height=cs.HALO_WORLD[1])), {}, 50),
-        ("K3", "halo_10k_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain, 0,
+        ("K3", "halo_10k_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain,
          lambda: cs.halo_slab_args(dev, dict(n_balls=cs.N_MAIN - 1, seed=cs.SEED)), {}, 200),
-        ("K2+clamp", "ladder_1m", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain, 1,
+        ("K2+clamp", "ladder_1m", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain,
          lambda: layout(ladder, 5), dict(clamp_bounds=(90_000.0, 40_000.0)), 50),
-        ("K2", "demo_10k", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain, 1,
-         lambda: layout(dict(n_balls=cs.N_MAIN, seed=cs.SEED), 30), {}, 200),
+        ("K2", "demo_10k", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain,
+         lambda: layout(demo, 30), {}, 200),
+        ("K1", "ladder_1m", ck.pair_pass_resident, ck.pair_pass_resident_plain,
+         lambda: layout(ladder, 5), {}, 50),
+        ("K1", "demo_10k", ck.pair_pass_resident, ck.pair_pass_resident_plain,
+         lambda: layout(demo, 30), {}, 200),
     ]
     rows = []
-    for key, shape_name, new, plain, which, make, kw, reps in cases:
+    for key, shape_name, new, plain, make, kw, reps in cases:
+        if not any(new.__name__ in wrappers for wrappers, _checked in olds.values()):
+            continue
         inputs = make()
         got_new = new(*inputs, **kw)
         same_plain = bit_equal(got_new, plain(*inputs, **kw))
         contacts = int(got_new[2].sum().item())
         cs.check(same_plain and contacts > 0, f"{key} on {shape_name}: new vs plain differ")
         b = (cs.grid_bound(inputs, contacts) if key == "K3"
-             else cs.bound(inputs, contacts, True))
+             else cs.bound(inputs, contacts, key != "K1"))
+        tile = list(ck.tile_of(new.__name__, inputs[0].shape))  # the new kernel's
         for old_name, (wrappers, checked) in olds.items():
-            old = wrappers[which]
+            old = wrappers.get(new.__name__)
+            if old is None:
+                continue
             cs.check(not checked or bit_equal(got_new, old(*inputs, **kw)),
                      f"{key} on {shape_name}: new vs {old_name} differ")
             ms_old, ms_new = time_ab(old, new, inputs, reps, **kw)
             row = {"kernel": key, "shape_name": shape_name, "shape": list(inputs[0].shape),
-                   "contacts": contacts, "old": old_name, "old_ms": ms_old, "new_ms": ms_new,
+                   "tile": tile, "contacts": contacts, "old": old_name, "old_ms": ms_old,
+                   "new_ms": ms_new,
                    "speedup": ms_old / ms_new, "bound_ms": b[0], "bound_by": b[1],
                    "new_share_of_bound": b[0] / ms_new, "old_share_of_bound": b[0] / ms_old,
                    "bit_equal_old_new_plain": checked}

@@ -2,11 +2,11 @@
 ``multithreadedgameengine_tpu``.
 
 The JAX package stays the reference; this package mirrors its module names
-and runs its main path, the balls scene, in PyTorch on an explicit device.
-On ``device="cuda"`` the pair pass runs as a hand-written CUDA kernel
-(``ops/cuda_kernels.py``, built from ``csrc/`` at first use); on
-``device="cpu"`` every kernel runs its plain PyTorch version. This package
-never imports JAX.
+and runs its main path, the balls scene, in PyTorch on the card unless the
+caller asks for the CPU. On ``device="cuda"``, the entry points' default,
+the pair pass runs as a hand-written CUDA kernel (``ops/cuda_kernels.py``,
+built from ``csrc/`` at first use); on ``device="cpu"`` every kernel runs
+its plain PyTorch version. This package never imports JAX.
 
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     eng = make_balls_engine(n_balls=10_000, seed=123456, device="cuda")

@@ -1,5 +1,5 @@
-// The asynchronous global-to-shared copies of the tiled pair passes (K2,
-// K3): the only inline PTX of the port's kernels, kept in one place.
+// The asynchronous global-to-shared copies of the tiled pair passes (K1,
+// K2, K3): the only inline PTX of the port's kernels, kept in one place.
 //
 // cp.async (sm_80 and later) moves a word from device memory straight into
 // shared memory without passing through a register, and a thread may have

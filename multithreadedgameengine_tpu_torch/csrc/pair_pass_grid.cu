@@ -40,8 +40,9 @@
 //   slot, each box row one contiguous run of the grid, copied with 4-byte
 //   cp.async so that a warp's copies coalesce into whole lines and every
 //   copy of the block is in flight at once. The tile is chosen from cap so
-//   that every box cell can be full (pair_tile::plan_tile); above what a
-//   1 x 1 tile stages, the wrapper refuses the capacity.
+//   that every box cell can be full, and made smaller for a grid too small
+//   to give every SM a block (pair_tile::plan_tile); above what a 1 x 1
+//   tile stages, the wrapper refuses the capacity.
 // - Not TMA: a TMA box's inner dimension is at most 256 elements and a
 //   multiple of 16 bytes, which `x` at a capacity that is not a multiple of
 //   4 and `attrs` above capacity 85 are not; cp.async stages every
@@ -259,9 +260,24 @@ __global__ void __launch_bounds__(kThreads) pair_pass_grid_kernel(
 // The largest capacity the kernel stages (a 1 x 1 tile in the current
 // device's shared memory), or -1 with the CUDA error unread.
 extern "C" int pair_pass_grid_max_cap() {
-  size_t max_smem = 0;
-  if (device_max_smem(&max_smem) != cudaSuccess) return -1;
-  return max_capacity(box_words, tile_words, max_smem);
+  DeviceLimits dev;
+  if (device_limits(&dev) != cudaSuccess) return -1;
+  return max_capacity(box_words, tile_words, dev.max_smem);
+}
+
+// The tile a launch over a layout of `rows` x `cols` cells with `cap`
+// slots a cell takes: its rows and columns of cells into tile[0] and
+// tile[1]. Returns the planning's CUDA error (0 on success).
+extern "C" int pair_pass_grid_tile(int cap, int rows, int cols, int* tile) {
+  TilePlan plan;
+  dim3 grid;
+  const cudaError_t err =
+      plan_launch(box_words(cap), tile_words(cap), cap, rows, cols, &plan, &grid);
+  if (err == cudaSuccess) {
+    tile[0] = plan.tr;
+    tile[1] = plan.tc;
+  }
+  return (int)err;
 }
 
 // Plain C entry point for ctypes. Launches on `stream` and returns
@@ -272,15 +288,10 @@ extern "C" int pair_pass_grid_launch(const float* x, const float* y,
                                      float* disp_y, int32_t* count, int rows,
                                      int cols, int cap, uint32_t salt,
                                      float strength, void* stream) {
-  if (rows < 3 || cols < 3 || cap < 1) return (int)cudaErrorInvalidValue;
-  size_t max_smem = 0;
-  cudaError_t err = device_max_smem(&max_smem);
-  if (err != cudaSuccess) return (int)err;
   TilePlan plan;
-  if (!plan_tile(box_words(cap), tile_words(cap), max_smem, &plan)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((cols - 2 + plan.tc - 1) / plan.tc),
-                  (unsigned)((rows - 2 + plan.tr - 1) / plan.tr));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid;
+  cudaError_t err = plan_launch(box_words(cap), tile_words(cap), cap, rows, cols, &plan, &grid);
+  if (err != cudaSuccess) return (int)err;
   err = allow_smem(pair_pass_grid_kernel, plan.smem, g_granted);
   if (err != cudaSuccess) return (int)err;
   pair_pass_grid_kernel<<<grid, kThreads, plan.smem, (cudaStream_t)stream>>>(

@@ -50,7 +50,9 @@
 //   4-byte cp.async: a layout row is (C+2) x 4 bytes, 4812 at the 1M
 //   layout, not a multiple of 16, so TMA, which needs 16-byte strides,
 //   cannot take the layout as it is, and the layout is not padded since
-//   the solver caches share it.
+//   the solver caches share it. The tile is chosen from the capacity, and
+//   made smaller for a grid too small to give every SM a block
+//   (pair_tile::plan_tile).
 // - One thread per box cell counts the cell's occupants. With `clamp`, each
 //   moving slot is then clamped once, in shared memory; the values equal
 //   clamping at every read.
@@ -181,19 +183,7 @@ __global__ void __launch_bounds__(kThreads) pair_pass_symmetric_kernel(
 
   // 2. each box cell's occupants: the slots before its first empty slot
   //    above plane 0 (none when planes 0 and 1 are both empty)
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    int n = 0;
-    if (sm[b] != 0 || (cap > 1 && sm[nb + b] != 0)) {
-      n = cap;
-      for (int j = 1; j < cap; ++j) {
-        if (sm[j * nb + b] == 0) {
-          n = j;
-          break;
-        }
-      }
-    }
-    cnt[b] = n;
-  }
+  count_occupants(sm, nb, cap, cnt);
   __syncthreads();
 
   // 3. with the clamp, each moving slot is clamped once, here
@@ -315,9 +305,24 @@ __global__ void __launch_bounds__(kThreads) pair_pass_symmetric_kernel(
 // The largest capacity the kernel stages (a 1 x 1 tile in the current
 // device's shared memory), or -1 with the CUDA error unread.
 extern "C" int pair_pass_symmetric_max_cap() {
-  size_t max_smem = 0;
-  if (device_max_smem(&max_smem) != cudaSuccess) return -1;
-  return max_capacity(box_words, tile_words, max_smem);
+  DeviceLimits dev;
+  if (device_limits(&dev) != cudaSuccess) return -1;
+  return max_capacity(box_words, tile_words, dev.max_smem);
+}
+
+// The tile a launch over a layout of `rows` x `cols` cells with `cap`
+// slots a cell takes: its rows and columns of cells into tile[0] and
+// tile[1]. Returns the planning's CUDA error (0 on success).
+extern "C" int pair_pass_symmetric_tile(int cap, int rows, int cols, int* tile) {
+  TilePlan plan;
+  dim3 grid;
+  const cudaError_t err =
+      plan_launch(box_words(cap), tile_words(cap), cap, rows, cols, &plan, &grid);
+  if (err == cudaSuccess) {
+    tile[0] = plan.tr;
+    tile[1] = plan.tc;
+  }
+  return (int)err;
 }
 
 // Plain C entry point for ctypes. Launches on `stream` and returns
@@ -328,15 +333,10 @@ extern "C" int pair_pass_symmetric_launch(
     float* new_x, float* new_y, int32_t* count, int cap, int rows, int cols,
     uint32_t salt, float strength, int clamp, float clamp_w, float clamp_h,
     void* stream) {
-  if (rows < 3 || cols < 3 || cap < 1) return (int)cudaErrorInvalidValue;
-  size_t max_smem = 0;
-  cudaError_t err = device_max_smem(&max_smem);
-  if (err != cudaSuccess) return (int)err;
   TilePlan plan;
-  if (!plan_tile(box_words(cap), tile_words(cap), max_smem, &plan)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((cols - 2 + plan.tc - 1) / plan.tc),
-                  (unsigned)((rows - 2 + plan.tr - 1) / plan.tr));
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid;
+  cudaError_t err = plan_launch(box_words(cap), tile_words(cap), cap, rows, cols, &plan, &grid);
+  if (err != cudaSuccess) return (int)err;
   err = allow_smem(pair_pass_symmetric_kernel, plan.smem, g_granted);
   if (err != cudaSuccess) return (int)err;
   pair_pass_symmetric_kernel<<<grid, kThreads, plan.smem, (cudaStream_t)stream>>>(

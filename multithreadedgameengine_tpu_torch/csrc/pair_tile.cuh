@@ -1,8 +1,10 @@
-// What the tiled pair passes K2 (pair_pass_symmetric.cu) and K3
-// (pair_pass_grid.cu) share: the cell tile a block stages, the walk of a
-// block's threads over the staged slots, the block-wide prefix sum that
-// hands every thread an occupied slot, the choice of the tile from the
-// capacity, and the coincident-pair hash direction.
+// What the tiled pair passes K1 (pair_pass_resident.cu), K2
+// (pair_pass_symmetric.cu) and K3 (pair_pass_grid.cu) share: the cell tile
+// a block stages, the walk of a block's threads over the staged slots, the
+// occupant count of a staged slot-major cell (K1, K2), the block-wide
+// prefix sum that hands every thread an occupied slot, the choice of the
+// tile and the grid of blocks from the capacity, the grid and the card, and
+// the coincident-pair hash direction.
 //
 // A block owns a tile of TR x TC interior cells of the grid (blockIdx.x the
 // column tile, blockIdx.y the row tile) and stages the tile plus its
@@ -25,9 +27,11 @@ constexpr int kThreads = 256;  // threads per block; every tile has at most 256 
 constexpr int kMaxDevices = 64;
 
 // Tiles tried in order, (rows, cols) of cells: wide first, since a box row
-// is one contiguous run of memory in both layouts.
+// is one contiguous run of memory in both layouts. Each needs less shared
+// memory than the one before it.
 constexpr int kTiles[][2] = {{8, 32}, {4, 32}, {8, 16}, {4, 16}, {8, 8}, {4, 8},
                              {2, 8},  {2, 4},  {1, 4},  {1, 2},  {1, 1}};
+constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 // A tile whose staging fits in this much shared memory leaves room for
 // three blocks on one SM; larger ones are taken only when no tile fits it.
 constexpr size_t kPreferredSmem = 64 * 1024;
@@ -42,28 +46,84 @@ inline size_t tile_smem_bytes(int tr, int tc, size_t box_words, size_t tile_word
   return 4 * (nb * (box_words + 3) + nt * (tile_words + 1) + 32);
 }
 
+// What a tile is planned against on the current device, read once per
+// device: a block's dynamic shared memory (227 KB on an H100) and the
+// number of SMs (132 on an H100 SXM).
+struct DeviceLimits {
+  size_t max_smem;
+  int sms;
+};
+
+inline cudaError_t device_limits(DeviceLimits* out) {
+  static DeviceLimits known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (known[dev].sms == 0) {
+    int bytes = 0;
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    known[dev] = DeviceLimits{(size_t)bytes, sms};
+  }
+  *out = known[dev];
+  return cudaSuccess;
+}
+
 struct TilePlan {
   int tr, tc;
   size_t smem;
 };
 
+// Blocks of a tr x tc tile over the interior of a grid of rows x cols cells
+// (border included).
+inline int64_t tile_blocks(int tr, int tc, int rows, int cols) {
+  return (int64_t)((rows - 2 + tr - 1) / tr) * ((cols - 2 + tc - 1) / tc);
+}
+
 // The tile for a kernel that stages `box_words` words a box cell and keeps
-// `tile_words` a tile cell, both sized for full cells: the first of kTiles
-// within kPreferredSmem, else the first within `max_smem`. Every cell of
-// the box may be full at once, so no staged array can overflow. False when
-// even a 1 x 1 tile does not fit.
-inline bool plan_tile(size_t box_words, size_t tile_words, size_t max_smem, TilePlan* out) {
-  for (int pass = 0; pass < 2; ++pass) {
-    const size_t limit = pass == 0 ? std::min(kPreferredSmem, max_smem) : max_smem;
-    for (const auto& t : kTiles) {
-      const size_t bytes = tile_smem_bytes(t[0], t[1], box_words, tile_words);
-      if (bytes <= limit) {
-        *out = TilePlan{t[0], t[1], bytes};
-        return true;
-      }
+// `tile_words` a tile cell, both sized for full cells, over a grid of rows x
+// cols cells: the first of kTiles within kPreferredSmem, else the first
+// within the device's limit; then, while that tile's blocks would leave SMs
+// of the card without a block, the next smaller tile: a grid too small to
+// fill the card runs faster on more, smaller blocks (measured in PERF.md
+// for K1 on the 10k demo layout). Every cell of the box may be full at
+// once, so no staged array can overflow.
+// False when even a 1 x 1 tile does not fit.
+inline bool plan_tile(size_t box_words, size_t tile_words, const DeviceLimits& dev, int rows,
+                      int cols, TilePlan* out) {
+  int i = -1;
+  for (int pass = 0; pass < 2 && i < 0; ++pass) {
+    const size_t limit = pass == 0 ? std::min(kPreferredSmem, dev.max_smem) : dev.max_smem;
+    for (int k = 0; k < kNumTiles && i < 0; ++k) {
+      if (tile_smem_bytes(kTiles[k][0], kTiles[k][1], box_words, tile_words) <= limit) i = k;
     }
   }
-  return false;
+  if (i < 0) return false;
+  while (i + 1 < kNumTiles && tile_blocks(kTiles[i][0], kTiles[i][1], rows, cols) < dev.sms) ++i;
+  const int tr = kTiles[i][0];
+  const int tc = kTiles[i][1];
+  *out = TilePlan{tr, tc, tile_smem_bytes(tr, tc, box_words, tile_words)};
+  return true;
+}
+
+// The tile and the grid of blocks of one launch over a grid of rows x cols
+// cells (border included) with `cap` slots a cell; an error when the grid
+// has no interior cell, when no tile fits, or when it needs too many rows
+// of blocks.
+inline cudaError_t plan_launch(size_t box_words, size_t tile_words, int cap, int rows, int cols,
+                               TilePlan* plan, dim3* grid) {
+  if (rows < 3 || cols < 3 || cap < 1) return cudaErrorInvalidValue;
+  DeviceLimits dev;
+  const cudaError_t err = device_limits(&dev);
+  if (err != cudaSuccess) return err;
+  if (!plan_tile(box_words, tile_words, dev, rows, cols, plan)) return cudaErrorInvalidValue;
+  *grid = dim3((unsigned)((cols - 2 + plan->tc - 1) / plan->tc),
+               (unsigned)((rows - 2 + plan->tr - 1) / plan->tr));
+  if (grid->y > 65535u) return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
 // The largest capacity whose 1 x 1 tile fits in `max_smem`, for a kernel
@@ -81,24 +141,6 @@ inline int max_capacity(BoxWords box_words, TileWords tile_words, size_t max_sme
     }
   }
   return lo;
-}
-
-// The current device's dynamic shared memory limit for one block (227 KB
-// on an H100), read once per device.
-inline cudaError_t device_max_smem(size_t* out) {
-  static size_t known[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (known[dev] == 0) {
-    int bytes = 0;
-    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    known[dev] = (size_t)bytes;
-  }
-  *out = known[dev];
-  return cudaSuccess;
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory on the current device
@@ -182,6 +224,28 @@ struct Walk {
     }
   }
 };
+
+// The occupants of every box cell of a slot-major stage, `sm` the staged
+// meta [cap][nb] (0 = empty slot): the slots before the cell's first empty
+// slot above plane 0, none when planes 0 and 1 are both empty, into
+// `cnt[b]`. Cells fill their slots rank-ascending and the only occupied
+// slot whose meta can be 0 is entity 0's, always on plane 0, so the
+// occupied slots are exactly these. Every thread of the block calls it.
+__device__ __forceinline__ void count_occupants(const int* sm, int nb, int cap, int* cnt) {
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    int n = 0;
+    if (sm[b] != 0 || (cap > 1 && sm[nb + b] != 0)) {
+      n = cap;
+      for (int j = 1; j < cap; ++j) {
+        if (sm[j * nb + b] == 0) {
+          n = j;
+          break;
+        }
+      }
+    }
+    cnt[b] = n;
+  }
+}
 
 // Inclusive prefix sum of one int per thread over the block. Every thread
 // of the block calls it; blockDim.x is a multiple of 32. `wsum` is 32 ints

@@ -1,4 +1,4 @@
-"""The Engine — host orchestrator and Scene API, on an explicit device.
+"""The Engine — host orchestrator and Scene API, on the card by default.
 
 PyTorch counterpart of the core of ``multithreadedgameengine_tpu/engine.py``:
 entity-class registration with parent-chain registration, ``init``, the
@@ -24,8 +24,9 @@ reference's gate picks it, ``physics_grid.use_symmetric``); the bin and
 attribute caches of ``rebin_interval > 1``; position residency; the banded
 boundary; and whether ``step(n)`` runs the lazy-readback chunk.
 
-``device`` is required: ``"cuda"`` runs the CUDA kernels, ``"cpu"`` their
-plain PyTorch versions. There is no automatic choice.
+``device`` defaults to ``"cuda"``, which runs the CUDA kernels; ``"cpu"``
+runs their plain PyTorch versions. There is no automatic choice and no
+fallback: without a card, the default raises at the first allocation.
 
 Configurations outside the ported slices raise ``NotImplementedError``
 naming their ROADMAP item (see ``_check_supported``); nothing is silently
@@ -185,7 +186,7 @@ class Engine:
         ),
     }
 
-    def __init__(self, config: Optional[EngineConfig] = None, *, device, **kwargs):
+    def __init__(self, config: Optional[EngineConfig] = None, *, device="cuda", **kwargs):
         if config is None:
             config = make_config(**kwargs)
         elif kwargs:

@@ -138,10 +138,11 @@ def make_balls_engine(
     spawn: bool = True,
     fast_spawn: bool | None = None,
     *,
-    device,
+    device="cuda",
     **overrides,
 ) -> Engine:
-    """Build and init the balls scene on ``device``; spawns like
+    """Build and init the balls scene on ``device`` (the card unless the
+    caller asks for ``"cpu"``); spawns like
     index.html's spawnRandomBall loop (x, y ~ rng() * world extent,
     vx = vy = 0). ``fast_spawn`` (default: at >= 50k balls) consumes the
     same stream in the same per-ball order through one spawn_batch."""

@@ -38,19 +38,24 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-#: the C functions of each source: (name, argument types, result type)
+#: the C functions of each source: (name, argument types, result type); the
+#: launch comes first
 ENTRY_POINTS = {
     "pair_pass_grid.cu": (
         ("pair_pass_grid_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),
         ("pair_pass_grid_max_cap", [], _I),
+        ("pair_pass_grid_tile", [_I, _I, _I, _P], _I),
     ),
     "pair_pass_resident.cu": (
         ("pair_pass_resident_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),
+        ("pair_pass_resident_max_cap", [], _I),
+        ("pair_pass_resident_tile", [_I, _I, _I, _P], _I),
     ),
     "pair_pass_symmetric.cu": (
         ("pair_pass_symmetric_launch",
          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _I, _F, _F, _P], _I),
         ("pair_pass_symmetric_max_cap", [], _I),
+        ("pair_pass_symmetric_tile", [_I, _I, _I, _P], _I),
     ),
 }
 

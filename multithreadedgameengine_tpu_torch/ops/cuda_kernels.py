@@ -19,10 +19,13 @@ K3 replaces ``pallas_kernels.py::pair_pass_pallas``, the legacy grid pass of
 reference's bordered grid ``[R+2, C+2, cap]`` with its border rows read as
 neighbours.
 
-K2 and K3 are tiled passes over occupied slots: a block stages a tile of
-cells and its one-cell ring in shared memory, sized so that every cell may
-be full, and hands each thread one occupied slot (``csrc/pair_tile.cuh``).
-A capacity above what the smallest tile stages is refused with a
+K1, K2 and K3 are tiled passes over occupied slots: a block stages a tile
+of cells and its one-cell ring in shared memory, sized so that every cell
+may be full, and hands each thread one occupied slot
+(``csrc/pair_tile.cuh``). They stop a cell's scan at its occupant count, so
+they rely on a cell's occupied slots forming a prefix of its slots, as the
+solver's binning fills them (``tests/test_torch_slot_prefix.py``). A
+capacity above what the smallest tile stages is refused with a
 ``ValueError``.
 
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
@@ -89,6 +92,23 @@ def _check_capacity(lib, kernel: str, cap: int, device: torch.device) -> None:
             f"shared memory")
 
 
+def tile_of(kernel: str, shape) -> Tuple[int, int]:
+    """The tile, (rows, cols) of cells, that one launch of ``kernel``
+    (``"pair_pass_resident"``, ``"pair_pass_symmetric"`` or
+    ``"pair_pass_grid"``) takes on the current CUDA device for a layout of
+    ``shape``: ``[cap, R+2, C+2]``, or K3's ``[R+2, C+2, cap]``."""
+    import ctypes
+
+    from . import _build
+
+    cap, rows, cols = (shape[2], shape[0], shape[1]) if kernel == "pair_pass_grid" else shape
+    tile = (ctypes.c_int * 2)()
+    err = getattr(_build.load(), f"{kernel}_tile")(int(cap), int(rows), int(cols), tile)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: no tile for {tuple(shape)} (CUDA error {err})")
+    return tile[0], tile[1]
+
+
 def pair_pass_resident_plain(
     x: Tensor, y: Tensor, radius: Tensor, meta: Tensor, salt: int,
     strength: float,
@@ -101,7 +121,9 @@ def pair_pass_resident_plain(
     ``x``/``y``/``radius``: f32 ``[cap, R+2, C+2]`` with an empty one-cell
     border; ``meta``: int32 ``gid | flags << 24`` (0 = empty slot). Returns
     the updated x, y and the int32 contact count, all of the input's shape;
-    border and non-collider slots pass through with count 0."""
+    border, empty and non-collider slots pass their x/y through bit for bit
+    (-0.0 and NaN kept) with count 0, and a collider slot gets ``x + acc``
+    (so a -0.0 that nothing touched becomes +0.0)."""
     _check_layout(x, y, radius, meta)
     cap, rows, cols = x.shape
     R, C = rows - 2, cols - 2
@@ -164,7 +186,8 @@ def pair_pass_resident(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """One K1 pass (see :func:`pair_pass_resident_plain` for the contract).
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream and raise if the launch is refused."""
+    current stream and raise if the launch is refused, or ``ValueError``
+    for a capacity above the kernel's limit."""
     _check_layout(x, y, radius, meta)
     if x.device.type == "cpu":
         return pair_pass_resident_plain(x, y, radius, meta, salt, strength)
@@ -178,6 +201,7 @@ def pair_pass_resident(
     new_y = torch.empty_like(y)
     count = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
+        _check_capacity(lib, "pair_pass_resident", cap, x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pair_pass_resident_launch(
             x.data_ptr(), y.data_ptr(), radius.data_ptr(), meta.data_ptr(),

@@ -1,4 +1,4 @@
-"""The in-process slab mesh: D world slabs held on one explicit device.
+"""The in-process slab mesh: D world slabs held on one device.
 
 The reference runs its spatial-domain step under ``shard_map`` on a device
 mesh, and its tests run that mesh as 8 virtual CPU devices in one process
@@ -86,9 +86,9 @@ class SlabMesh:
         return total
 
 
-def make_mesh(n_slabs: int, device) -> SlabMesh:
-    """The slab mesh of ``n_slabs`` slabs on ``device`` (required, as every
-    entry point of the port)."""
+def make_mesh(n_slabs: int, device="cuda") -> SlabMesh:
+    """The slab mesh of ``n_slabs`` slabs on ``device``: the card unless the
+    caller asks for ``"cpu"``, as every entry point of the port."""
     if n_slabs < 1:
         raise ValueError(f"a mesh needs at least one slab, got {n_slabs}")
     return SlabMesh(n_slabs=int(n_slabs), device=torch.device(device))

@@ -1,9 +1,10 @@
 """K1, K2 and K3 on the card: each CUDA kernel against its plain PyTorch
 version (K2 with and without the folded clamp), the edges of the tiled
-passes K2 and K3 (full cells, non-colliders among a cell's occupants, grids
-that are ragged against the tile or narrower than it, capacities 1 to 64,
-the capacity limit), the wrappers' checks and launch counts, and the ported
-slices on ``cuda`` against the same slices on ``cpu``. Marked ``cuda``;
+passes K1, K2 and K3 (full cells, non-colliders among a cell's occupants,
+grids that are ragged against the tile or narrower than it, capacities 1 to
+64, the capacity limit), K1's bit-for-bit pass-through of the slots it does
+not move, the wrappers' checks and launch counts, and the ported slices on
+``cuda`` against the same slices on ``cpu``. Marked ``cuda``;
 each test skips without a card.
 On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``
@@ -197,19 +198,72 @@ def test_k3_edges_bit_equal_on_card(cuda, name, n, cap, world):
     assert_bit_equal(got, want)
 
 
+def assert_full_with_non_colliders(meta, cap, world):
+    """Every world cell of a "full" layout holds ``cap`` entities, and an
+    occupied slot without a collider sits below an occupied collider."""
+    occ = meta != 0
+    world_cells = int(world[0] // 30) * int(world[1] // 30)
+    assert int((occ.sum(0) == cap).sum()) >= world_cells
+    no_coll = occ & (((meta >> 24) & 1) == 0)
+    assert bool((no_coll[:-1] & (((meta[1:] >> 24) & 1) == 1)).any())
+
+
+@pytest.mark.parametrize("name,n,cap,world", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_k1_edges_bit_equal_on_card(cuda, name, n, cap, world):
+    """K1 equals its plain version bit for bit on the tiled pass's edges."""
+    args = random_layout(cap, n, cap, cuda, world=world)
+    if "full" in name:
+        assert_full_with_non_colliders(args[3], cap, world)
+    got = pair_pass_resident(*args)
+    want = pair_pass_resident_plain(*args)
+    torch.cuda.synchronize()
+    assert int(want[2].sum()) > 0
+    assert_bit_equal(got, want)
+
+
+def test_k1_passes_slots_through_bit_for_bit_on_card(cuda):
+    """The slots K1 does not move -- an occupied slot without a collider, an
+    empty slot, a border slot -- come back bit for bit, -0.0 and NaN
+    included, with count 0; a collider that nothing touches gets x + 0.0,
+    so its -0.0 comes back +0.0."""
+    x, y, radius, meta, salt, strength = random_layout(5, 400, 8, cuda)
+    x, y = x.clone(), y.clone()
+    inner = torch.zeros_like(meta, dtype=torch.bool)
+    inner[:, 1:-1, 1:-1] = True
+    occ = meta != 0
+    coll = ((meta >> 24) & 1) == 1
+    no_coll = tuple((occ & ~coll).nonzero()[0].tolist())
+    empty = tuple((~occ & inner).nonzero()[0].tolist())
+    border = (0, 0, 3)
+    # a collider at least 3 columns from the left edge: at x = -0.0 it is
+    # 60 px or more from every neighbour, beyond any contact (radius <= 12)
+    far = coll.clone()
+    far[:, :, :4] = False
+    lone = tuple(far.nonzero()[0].tolist())
+    for slot, vx, vy in ((no_coll, -0.0, float("nan")), (empty, float("nan"), -0.0),
+                         (border, -0.0, float("nan")), (lone, -0.0, y[lone].item())):
+        x[slot], y[slot] = vx, vy
+    args = (x, y, radius, meta, salt, strength)
+    got = pair_pass_resident(*args)
+    want = pair_pass_resident_plain(*args)
+    torch.cuda.synchronize()
+    assert_bit_equal(got, want)
+    for slot in (no_coll, empty, border):
+        for out, inp in ((got[0], x), (got[1], y)):
+            assert int(out[slot].view(torch.int32)) == int(inp[slot].view(torch.int32))
+        assert int(got[2][slot]) == 0
+    assert int(got[0][lone].view(torch.int32)) == 0  # +0.0
+    assert int(got[2][lone]) == 0
+
+
 @pytest.mark.parametrize("clamp", [False, True], ids=["noclamp", "clamp"])
 @pytest.mark.parametrize("name,n,cap,world", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
 def test_k2_edges_bit_equal_on_card(cuda, name, n, cap, world, clamp):
     """K2 equals its plain version bit for bit on the tiled pass's edges,
     with and without the folded clamp."""
     args = random_layout(cap, n, cap, cuda, world=world)
-    meta = args[3]
-    occ = meta != 0
     if "full" in name:
-        world_cells = int(world[0] // 30) * int(world[1] // 30)
-        assert int((occ.sum(0) == cap).sum()) >= world_cells
-        no_coll = occ & (((meta >> 24) & 1) == 0)
-        assert bool((no_coll[:-1] & (((meta[1:] >> 24) & 1) == 1)).any())
+        assert_full_with_non_colliders(args[3], cap, world)
     bounds = world if clamp else None
     got = pair_pass_symmetric(*args, clamp_bounds=bounds)
     want = pair_pass_symmetric_plain(*args, clamp_bounds=bounds)
@@ -218,7 +272,7 @@ def test_k2_edges_bit_equal_on_card(cuda, name, n, cap, world, clamp):
     assert_bit_equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["grid", "symmetric"])
+@pytest.mark.parametrize("kernel", ["grid", "symmetric", "resident"])
 def test_capacity_limit_on_card(cuda, kernel):
     """At its capacity limit (a 1 x 1 tile in nearly all of the block's
     shared memory) the tiled pass runs and equals its plain version; one
@@ -244,7 +298,8 @@ def test_capacity_limit_on_card(cuda, kernel):
             meta = torch.zeros((cap, 3, 3), dtype=torch.int32, device=cuda)
             meta[:2, 1, 1] = torch.tensor([1 << 24, 1 | (1 << 24)], dtype=torch.int32)
             args = (x, torch.zeros_like(x), radius, meta, 3, 0.8)
-            fn, plain = pair_pass_symmetric, pair_pass_symmetric_plain
+            fn, plain = ((pair_pass_symmetric, pair_pass_symmetric_plain) if kernel == "symmetric"
+                         else (pair_pass_resident, pair_pass_resident_plain))
         if cap > limit:
             with pytest.raises(ValueError, match=f"capacity {cap} is above {limit}"):
                 fn(*args)
@@ -254,6 +309,21 @@ def test_capacity_limit_on_card(cuda, kernel):
             torch.cuda.synchronize()
             assert int(want[2].sum()) == 2
             assert_bit_equal(got, want)
+
+
+def test_tile_picks_on_card(cuda):
+    """The tile each pass takes: sized by shared memory for grids that give
+    every SM a block (K1 and K2 on the 1M ladder layout, K3 on the 1M halo
+    slab grid), smaller where the grid would leave SMs idle (K1 on the 10k
+    demo layout: 4 x 8 cells, 224 blocks, not 4 x 32 and 56)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cuda_kernels.tile_of("pair_pass_symmetric", (12, 536, 1203)) == (4, 32)
+    assert cuda_kernels.tile_of("pair_pass_resident", (12, 536, 1203)) == (4, 32)
+    assert cuda_kernels.tile_of("pair_pass_grid", (136, 1203, 16)) == (4, 16)
+    tr, tc = cuda_kernels.tile_of("pair_pass_resident", (8, 56, 123))
+    assert -(-54 // tr) * -(-121 // tc) >= sms
+    if sms == 132:  # an H100 SXM
+        assert (tr, tc) == (4, 8)
 
 
 def test_halo_step_on_card_matches_cpu(cuda):

@@ -182,6 +182,45 @@ def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
         pair_pass_resident(t, gy, lay.radius, lay.meta, 3, 0.7)
 
 
+def test_plain_k1_passes_slots_through():
+    """The contract the CUDA kernel is held to on the slots it does not
+    move: an occupied slot without a collider, an empty slot and a border
+    slot come back bit for bit, -0.0 and NaN kept, with count 0; a collider
+    that nothing touches gets x + 0.0, so its -0.0 comes back +0.0."""
+    _s, cfg, geom, _wj, wt = scene_worlds("random0")
+    off = 5
+    c = wt.collider
+    active = c.active.clone()
+    active[off] = False
+    wt = wt.replace(collider=c.replace(active=active))
+    lay = build_layout(wt, geom)
+    x, y = lay.scatter(wt.transform.x), lay.scatter(wt.transform.y)
+    meta = lay.meta
+    assert bool(lay.in_grid[off])
+    no_coll = tuple(int(i) for i in np.unravel_index(int(lay.flat[off]), meta.shape))
+    assert meta[no_coll] != 0 and (int(meta[no_coll]) >> 24) & 1 == 0
+    inner = torch.zeros(meta.shape, dtype=torch.bool)
+    inner[:, 1:-1, 1:-1] = True
+    empty = tuple((inner & (meta == 0)).nonzero()[0].tolist())
+    border = (0, 0, 2)
+    # a collider without contacts in the unchanged layout: moved to -0.0 it
+    # is further still from its neighbours, unless it sits by the left edge
+    _nx, _ny, count = pair_pass_resident_plain(x, y, lay.radius, meta, 3, 0.7)
+    idle = (((meta >> 24) & 1) == 1) & (count == 0)
+    idle[:, :, :4] = False
+    lone = tuple(idle.nonzero()[0].tolist())
+    for slot, vx, vy in ((no_coll, -0.0, float("nan")), (empty, float("nan"), -0.0),
+                         (border, -0.0, float("nan")), (lone, -0.0, float(y[lone]))):
+        x[slot], y[slot] = vx, vy
+    nx, ny, nc = pair_pass_resident_plain(x, y, lay.radius, meta, 3, 0.7)
+    for slot in (no_coll, empty, border):
+        for out, inp in ((nx, x), (ny, y)):
+            assert int(out[slot].view(torch.int32)) == int(inp[slot].view(torch.int32))
+        assert int(nc[slot]) == 0
+    assert int(nx[lone].view(torch.int32)) == 0 and int(nc[lone]) == 0  # +0.0
+    assert int(nc.sum()) > 0
+
+
 @pytest.mark.parametrize("name", ["random0", "zero_elasticity1", "zero_elasticity4",
                                   "over_capacity"])
 def test_grid_constraints_matches_reference_solver(name):

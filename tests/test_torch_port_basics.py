@@ -191,5 +191,19 @@ def test_neighbour_reading_tick_is_refused():
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
-        Engine(balls_config())
+    """The entry points run on the card unless the caller asks for the CPU:
+    ``device`` defaults to ``"cuda"``, with no probing and no fallback, so
+    without a card the default raises at the first allocation instead of
+    running on the CPU."""
+    import inspect
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.parallel import make_mesh
+
+    for fn in (Engine.__init__, make_balls_engine, make_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert Engine(balls_config()).device == torch.device("cuda")
+    assert make_mesh(2).device == torch.device("cuda")
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            make_balls_engine(n_balls=8)
