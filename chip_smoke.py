@@ -49,9 +49,25 @@ Phases, each printing one line or more before the last:
    on 4 slabs (``oversub`` 4) against ``Engine.step`` (K1) for 10 frames:
    x, y, px, py and the contact counts must be bit-equal; (d) K3 timed on
    one slab grid of the 10,000-ball demo scene on 4 slabs;
-7. the K4 probe's yardstick (K4 is not ported): the scatter
-   ``benchmarks/probe_expand_kernel.py`` checks its kernel against, at the
-   probe's shapes, timed on its own ``[k4_library]`` line.
+7. slice C1's main path, BASELINE config 3 (``benchmarks/run_ladder.py:
+   166-188``): 15,000 boids and the mouse in 5000 x 2000 through
+   ``Engine.step``, 5 + 20 frames, each building its neighbour lists (the
+   cell-major form, 800 candidate slots, 6 payload channels), running the
+   batched ``Boid.tick`` and K1 once (``[boids_15k]``: steps/s, launch
+   counts, ``n_binned``, overflow, mean neighbour count, finiteness); then
+   400 boids on the card against the CPU for 5 frames
+   (``[boids_reference]``);
+8. the halo benchmark's boids scene (``benchmarks/halo_scaling.py:77-102``,
+   ``oversub`` 1.5 as at :258): 102,400 entities on 4 slabs of the card,
+   phase A building each slab's neighbour tables, for 10 frames against
+   ``Engine.step`` (``[halo_boids]``: steps/s, K3 launches, route
+   overflows, and the comparison);
+9. K4 (``expand``) at the probe's shapes (``benchmarks/
+   probe_expand_kernel.py:104-119``: 1,000,000 entities, 66 chunks of
+   131,072 slots): one placement through the wrapper as the probe makes
+   it, then against its plain version bit for bit there and on a small
+   odd-sized case, timed beside the probe's yardstick (zeros and
+   ``index_copy_``, ``[k4]``).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -88,6 +104,17 @@ HALO_WORLD = (90_000.0, 40_000.0)
 # the halo-against-single-device check: 100,000 entities at the demo's density
 CHECK_N, CHECK_WORLD = 100_000, (9000.0 * 10 ** 0.5, 4000.0 * 10 ** 0.5)
 PEAK_F32_S = 67e12
+# slice C1: BASELINE config 3, the JAX ladder's boids rung
+BOIDS_N, BOIDS_WORLD, BOIDS_WARMUP, BOIDS_FRAMES = 15_000, (5000.0, 2000.0), 5, 20
+CONFIG3_SPATIAL = dict(cell_size=50.0, max_neighbors=400, cell_capacity=32)
+# the halo benchmark's boids scene at its default size, and its oversub
+HALO_BOIDS_N, HALO_BOIDS_WORLD, HALO_BOIDS_FRAMES = 102_400, (12_000.0, 6_000.0), 10
+HALO_BOIDS_SPATIAL = dict(cell_size=100.0, max_neighbors=48, cell_capacity=32)
+HALO_BOIDS_OVERSUB = 1.5
+# K4 at the probe's shapes: 1M entities, chunks of 128 x 1024 slots over the
+# 1M ladder layout rounded up to whole chunks (66)
+K4_N, K4_CHUNK = 1_000_000, 128 * 1024
+K4_TOTAL = (12 * 556 * 1280 // K4_CHUNK + 1) * K4_CHUNK
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -477,6 +504,7 @@ def zero_counts():
     ck.pair_pass_resident.launches = 0
     ck.pair_pass_symmetric.launches = 0
     ck.pair_pass_grid.launches = 0
+    ck.expand.launches = 0
 
 
 def read_counts():
@@ -624,43 +652,287 @@ def halo_slab_args(dev, scene, frames=3):
     return slab_grid_args(step, chunks, mesh)
 
 
-def k4_library(dev):
-    """The K4 probe's yardstick (``benchmarks/probe_expand_kernel.py:104-
-    135``): two zeroed ``[total]`` outputs and ``index_copy_`` of x and y at
-    ``flat``, with n = 1,000,000 entities and total = 66 x 131,072 slots,
-    ``flat`` distinct slots from a seeded permutation. Returns (library ms,
-    bound ms): the bound moves x, y, order and flat once (16 B an entity)
-    and writes both outputs (8 B a slot)."""
+def boids_engine(dev, n, world, spatial, **physics):
+    """The boids scenes as the JAX benchmarks build them inline
+    (``run_ladder.py:166-188``, ``halo_scaling.py:77-102``): ``n`` boids and
+    the mouse, one substep (and any other ``physics`` knobs), spawned from
+    numpy's stream at ``SEED`` with x and y in ``[50, extent - 50]`` and vx,
+    vy in ``[-3, 3]``."""
+    import numpy as np
+
+    from multithreadedgameengine_tpu_torch import Engine, make_config
+    from multithreadedgameengine_tpu_torch.models.boids import Boid
+
+    eng = Engine(make_config(world_width=world[0], world_height=world[1], seed=SEED,
+                             spatial=spatial, physics=dict(sub_step_count=1, **physics)),
+                 device=dev)
+    eng.register_entity_class(Boid, n)
+    eng.init()
+    rng = np.random.default_rng(SEED)
+    eng.spawn_batch(
+        "Boid", n,
+        x=rng.uniform(50, world[0] - 50, n).astype(np.float32),
+        y=rng.uniform(50, world[1] - 50, n).astype(np.float32),
+        vx=rng.uniform(-3, 3, n).astype(np.float32),
+        vy=rng.uniform(-3, 3, n).astype(np.float32),
+        call_on_spawned=False,
+    )
+    return eng
+
+
+def neighbor_lists_of(w, cfg):
+    """The neighbour lists a frame of ``w`` builds (the boids' payload)."""
+    from multithreadedgameengine_tpu_torch.ops.spatial import neighbor_lists
+
+    t = w.transform
+    extras = (w.rigid_body.vx, w.rigid_body.vy, t.entity_type)
+    return neighbor_lists(t.x, t.y, t.active, w.collider.visual_range, cfg, extras)
+
+
+#: boids on the card against the CPU: positions within this many float32
+#: ulps at the world's extent. The frames sum each boid's neighbour terms
+#: with torch.sum, whose order on the card differs from the CPU's, so the
+#: accelerations differ in their last bits and positions by an ulp or so a
+#: frame; integer state is exact.
+BOIDS_REF_ULPS = 8
+
+
+def boids_phase(dev, errs):
+    """Slice C1's main path (BASELINE config 3), K1 against its plain
+    version on that run's layout and timed there, then the 400-boid scene
+    on the card against the CPU. Returns K1's launches on the main path and
+    its times on the boids layout."""
+    import numpy as np
+
+    eng = boids_engine(dev, BOIDS_N, BOIDS_WORLD, CONFIG3_SPATIAL)
+    ck = kernels()
+    zero_counts()
+    eng.step(BOIDS_WARMUP, block=True)
+    t0 = time.perf_counter()
+    eng.step(BOIDS_FRAMES)
+    eng.sync()
+    dt = time.perf_counter() - t0
+    k1, k2, k3 = read_counts()
+    k4 = ck.expand.launches
+    frames = BOIDS_WARMUP + BOIDS_FRAMES
+    w, m, cfg = eng.world, eng.metrics, eng.config
+    nbr = neighbor_lists_of(w, cfg)
+    ok = finite(w)
+    n_binned = int(m["n_binned"].item())
+    overflow = int(m["solver_overflow"].item())
+    log("boids_15k", boids=BOIDS_N, frames=frames, steps_per_s=BOIDS_FRAMES / dt,
+        k1_launches=k1, expected_k1=frames * cfg.physics.sub_step_count, k2_launches=k2,
+        k3_launches=k3, k4_launches=k4, n_binned=n_binned, solver_overflow=overflow,
+        scan_radius=cfg.spatial.max_cell_radius, slots=list(nbr.ids.shape),
+        payload=list(nbr.payload.data.shape), symmetric=eng._plan.symmetric,
+        layout=list(layout_args(eng)[0].shape),
+        mean_neighbors=nbr.count[1:].float().mean().item(),
+        max_neighbors=int(nbr.count.max().item()),
+        mean_contacts=w.rigid_body.collision_count[1:].float().mean().item(), finite=ok)
+    check(ok and int(m["nonfinite_count"].item()) == 0, "boids_15k: non-finite positions")
+    check(w.step_count == frames, "boids_15k: step_count")
+    check(k1 == frames * cfg.physics.sub_step_count and k2 == 0 and k3 == 0 and k4 == 0,
+          f"boids_15k: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches; expected {frames}, 0, 0, 0")
+    check(n_binned in (BOIDS_N, BOIDS_N + 1), f"boids_15k: n_binned {n_binned}")
+    kern, plain = ck.pair_pass_resident, ck.pair_pass_resident_plain
+    args = layout_args(eng)
+    err, (_x, _y, kc) = kernel_vs_plain(kern, plain, "boids_15k", args, max(BOIDS_WORLD))
+    errs["K1"].append(err)
+    k1_ms, k1_plain_ms = time_kernel(kern, plain, args)
+    b = bound(args, int(kc.sum().item()), False)
+    log("timing", layout="boids_15k", shape=list(args[0].shape), k1_ms=k1_ms,
+        k1_plain_ms=k1_plain_ms, bound_ms=b[0], bound_by=b[1])
+    timing = dict(shape_boids=list(args[0].shape), ms_boids=k1_ms,
+                  plain_ms_boids=k1_plain_ms, bound_ms_boids=b[0])
+    del eng, nbr, w, args
+
+    # reference on a small input: the config-3 knobs, 400 boids in 1200 x
+    # 800, on the card and on the CPU
+    runs = {}
+    for d in (dev, "cpu"):
+        e = boids_engine(d, 400, (1200.0, 800.0), CONFIG3_SPATIAL)
+        e.step(5)
+        runs[str(d)] = (e.snapshot(), e.config)
+    (a, cfg), (b, _cfg) = runs[str(dev)], runs["cpu"]
+    err = max((a.transform.x - b.transform.x).abs().max().item(),
+              (a.transform.y - b.transform.y).abs().max().item())
+    contacts_bad = int((a.rigid_body.collision_count != b.rigid_body.collision_count).sum())
+    # the lists of one world, built on the card and on the CPU
+    lc = neighbor_lists_of(b.map_tensors(lambda v: v.to(dev)), cfg)
+    lh = neighbor_lists_of(b, cfg)
+    ids_bad = int((lc.ids.cpu() != lh.ids).sum())
+    count_bad = int((lc.count.cpu() != lh.count).sum())
+    d2_err = (lc.d2.cpu() - lh.d2).abs().max().item()
+    tol = BOIDS_REF_ULPS * float(np.spacing(np.float32(1200.0)))
+    log("boids_reference", boids=400, frames=5, max_abs_err_vs_cpu=err, tol=tol,
+        contact_mismatch=contacts_bad, ids_mismatch=ids_bad, count_mismatch=count_bad,
+        d2_max_abs_err=d2_err, mean_neighbors=lh.count[1:].float().mean().item())
+    check(ids_bad == 0 and count_bad == 0 and d2_err == 0.0,
+          "boids_reference: the card's neighbour lists differ from the CPU's")
+    check(err <= tol, f"boids_reference: positions differ by {err} (tol {tol})")
+    check(contacts_bad == 0, "boids_reference: contact counts differ")
+    return k1, timing
+
+
+def halo_boids_phase(dev, errs):
+    """The halo benchmark's boids scene on 4 slabs against Engine.step,
+    then K3 against its plain version on one slab grid of that run, timed
+    there. Returns K3's launches on the scene and its times.
+
+    The single-device step runs the two-sided pass (K1), whose per-slot
+    order of pushes is K3's. At this width (482 solver columns) "auto"
+    would pick K2, which sums the same pushes in another order (the
+    reference's drift within 1e-3, ROADMAP §3), so both engines pin
+    ``solver_predicated="off"``; the halo step's K3 does not read it."""
     import torch
 
-    n, chunk = 1_000_000, 128 * 1024
-    total = (12 * 556 * 1280 // chunk + 1) * chunk
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    flat = torch.randperm(total, generator=g, device=dev)[:n]
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, unplace_fn
+    from multithreadedgameengine_tpu_torch.parallel.halo import _get_comp, entity_leaf_specs
+
+    eh, es = (boids_engine(dev, HALO_BOIDS_N - 1, HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL,
+                           solver_predicated="off") for _ in range(2))
+    for e in (eh, es):
+        e._flush_pending()
+    step, place = make_halo_step(eh, make_mesh(HALO_SLABS, dev), oversub=HALO_BOIDS_OVERSUB)
+    plan = step.plan
+    chunks = place(eh.world)
+    ins = eh.input.snapshot(dev)
+    zero_counts()
+    chunks, m = step(chunks, ins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HALO_BOIDS_FRAMES - 1):
+        chunks, m = step(chunks, ins)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1_h, k2_h, k3_h = read_counts()
+    zero_counts()
+    es.step(HALO_BOIDS_FRAMES, block=True)
+    k1_s, k2_s, k3_s = read_counts()
+    a, b = unplace_fn(chunks), es.world
+    diff = {}
+    for cname, fname, dt_ in entity_leaf_specs(a):
+        u, v = getattr(_get_comp(a, cname), fname), getattr(_get_comp(b, cname), fname)
+        if not torch.equal(u, v):
+            diff[f"{cname}.{fname}"] = ((u.double() - v.double()).abs().max().item()
+                                        if dt_ == torch.float32 else int((u != v).sum()))
+    subs = plan.cfg.physics.sub_step_count
+    log("halo_boids", entities=HALO_BOIDS_N, slabs=HALO_SLABS, frames=HALO_BOIDS_FRAMES,
+        steps_per_s=(HALO_BOIDS_FRAMES - 1) / dt, k3_launches=k3_h,
+        expected_k3=HALO_BOIDS_FRAMES * subs * HALO_SLABS, k1_launches=k1_h, k2_launches=k2_h,
+        k1_launches_single=k1_s, route_cap=plan.route_cap, hw=plan.hw,
+        table=[plan.table_geom.rows, plan.table_geom.cols, plan.table_geom.capacity],
+        n_binned=int(m["n_binned"].item()),
+        route_overflow_logic=int(m["route_overflow_logic"].item()),
+        route_overflow_solver=int(m["route_overflow_solver"].item()),
+        nonfinite=int(m["nonfinite_count"].item()), bit_equal=not diff,
+        differing=json.dumps(diff, sort_keys=True).replace(" ", ""))
+    check(int(m["route_overflow_logic"].item()) == 0
+          and int(m["route_overflow_solver"].item()) == 0, "halo_boids: route overflow")
+    check(int(m["n_binned"].item()) == HALO_BOIDS_N, "halo_boids: n_binned")
+    check(k3_h == HALO_BOIDS_FRAMES * subs * HALO_SLABS and k1_h == 0 and k2_h == 0,
+          f"halo_boids: K3 {k3_h}, K1 {k1_h}, K2 {k2_h} launches")
+    check(k1_s == HALO_BOIDS_FRAMES * subs and k3_s == 0 and k2_s == 0,
+          f"halo_boids: Engine.step launched K1 {k1_s}, K2 {k2_s}, K3 {k3_s}")
+    check(not diff, f"halo_boids: the halo step and Engine.step differ: {diff}")
+    ck = kernels()
+    args = slab_grid_args(step, chunks, make_mesh(HALO_SLABS, dev))
+    err, (_x, _y, kc) = kernel_vs_plain(ck.pair_pass_grid, ck.pair_pass_grid_plain,
+                                        "halo_boids_slab1", args, None)
+    errs["K3"].append(err)
+    k3_ms, k3_plain_ms = time_kernel(ck.pair_pass_grid, ck.pair_pass_grid_plain, args,
+                                     kernel_reps=100, plain_reps=2)
+    b = grid_bound(args, int(kc.sum().item()))
+    log("timing", grid="halo_boids_slab1", shape=list(args[0].shape), k3_ms=k3_ms,
+        k3_plain_ms=k3_plain_ms, bound_ms=b[0], bound_by=b[1])
+    return k3_h, dict(shape_halo_boids=list(args[0].shape), ms_halo_boids=k3_ms,
+                      plain_ms_halo_boids=k3_plain_ms, bound_ms_halo_boids=b[0])
+
+
+def k4_inputs(dev, n, chunk, total, seed, empty_chunk=None):
+    """K4's inputs as the probe makes them: ``n`` distinct slots of
+    ``total`` (a seeded permutation; none in chunk ``empty_chunk``), the
+    entities sorted by slot, each chunk's range by a search of the sorted
+    slots, normal x and y."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(total, generator=g, device=dev)
+    if empty_chunk is not None:
+        perm = perm[perm // chunk != empty_chunk]
+    flat = perm[:n].to(torch.int32)
+    order = torch.argsort(flat).to(torch.int32)
+    starts = torch.arange(0, total + 1, chunk, device=dev, dtype=torch.int32)
+    bounds = torch.searchsorted(flat[order.long()], starts).to(torch.int32)
     x = torch.randn(n, generator=g, device=dev)
     y = torch.randn(n, generator=g, device=dev)
+    return (x, y, order, flat, bounds, total, chunk)
+
+
+def k4_bound(args):
+    """The least time for one K4 pass, in ms: x, y, order and flat read
+    once (16 B an entity), bounds read, both outputs written (8 B a slot),
+    over the HBM rate; it does no arithmetic."""
+    x, _y, _o, _f, bounds, total, _c = args
+    return (16 * x.numel() + 4 * bounds.numel() + 8 * total) / PEAK_BYTES_S * 1e3
+
+
+def k4_phase(dev):
+    """K4's path (the probe's placement) once through the wrapper, then K4
+    against its plain version bit for bit, timed beside the yardstick."""
+    import torch
+
+    ck = kernels()
+    probe = k4_inputs(dev, K4_N, K4_CHUNK, K4_TOTAL, SEED)
+    zero_counts()
+    ox, oy = ck.expand(*probe)
+    torch.cuda.synchronize()
+    launches = ck.expand.launches
+    x, y, _order, flat, _b, total, chunk = probe
+    fl = flat.long()
+    placed = bool(torch.equal(ox.view(-1)[fl], x) and torch.equal(oy.view(-1)[fl], y))
+    empty = torch.ones(total, dtype=torch.bool, device=dev)
+    empty[fl] = False
+    zeros = bool((ox.view(-1)[empty] == 0).all() and (oy.view(-1)[empty] == 0).all()
+                 and not torch.signbit(ox.view(-1)[empty]).any())
+    check(launches == 1 and placed and zeros, f"K4: launches {launches}, placed {placed}, "
+          f"zeros elsewhere {zeros}")
+    errs = []
+    # a small odd-sized case: an odd entity count, chunks of 8200 slots (a
+    # block of 8192 and a ragged one of 8), chunk 2 with no entity
+    small = k4_inputs(dev, 1237, 8200, 5 * 8200, SEED + 1, empty_chunk=2)
+    for name, args in (("probe", probe), ("small", small)):
+        kx, ky = ck.expand(*args)
+        px, py = ck.expand_plain(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(kx.view(torch.int32), px.view(torch.int32))
+                    and torch.equal(ky.view(torch.int32), py.view(torch.int32)))
+        err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+        errs.append(err)
+        log("parity", kernel="expand", case=name, shape=list(kx.shape), entities=args[0].numel(),
+            bit_equal=same, max_abs_err=err)
+        check(same and err == 0.0, f"K4 differs from its plain version on {name}")
+    k4_ms, k4_plain_ms = time_kernel(ck.expand, ck.expand_plain, probe, kernel_reps=50,
+                                     plain_reps=5)
 
     def scatter():
-        ox = torch.zeros(total, device=dev)
-        oy = torch.zeros(total, device=dev)
-        ox.index_copy_(0, flat, x)
-        oy.index_copy_(0, flat, y)
-        return ox, oy
+        lx = torch.zeros(total, device=dev)
+        ly = torch.zeros(total, device=dev)
+        lx.index_copy_(0, fl, x)
+        ly.index_copy_(0, fl, y)
+        return lx, ly
 
-    ox, oy = scatter()
-    check(bool(torch.equal(ox[flat], x) and torch.equal(oy[flat], y))
-          and int((ox != 0).sum().item()) <= n, "K4 yardstick: scatter misplaced")
-    times = []
-    for _ in range(3):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(20):
-            scatter()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / 20)
-    bound_ms = (16 * n + 8 * total) / PEAK_BYTES_S * 1e3
-    return statistics.median(times), bound_ms
+    lx, _ly = scatter()
+    check(bool(torch.equal(lx.view_as(ox), ox)), "K4 yardstick: scatter misplaced")
+    lib = graph_timer(lambda: scatter(), (), 50)
+    lib_ms = statistics.median([lib(), lib(), lib()])
+    bound_ms = k4_bound(probe)
+    log("k4", entities=K4_N, chunks=total // chunk, slots=total, launches=launches,
+        k4_ms=k4_ms, plain_ms=k4_plain_ms, library_ms=lib_ms,
+        library_call="zeros + index_copy_ of x and y", bound_ms=bound_ms, bound_by="bytes",
+        share_of_bound=bound_ms / k4_ms)
+    return dict(launches=launches, ms=k4_ms, plain_ms=k4_plain_ms, library_ms=lib_ms,
+                bound=(bound_ms, "bytes"), errs=errs, shape=list(ox.shape))
 
 
 def main() -> int:
@@ -859,16 +1131,22 @@ def main() -> int:
     halo = halo_phase(dev)
     errs["K3"] = halo["errs"]
 
-    # 7. the K4 probe's yardstick
-    k4_ms, k4_bound = k4_library(dev)
-    log("k4_library", call="zeros + index_copy_ of x and y", entities=1_000_000,
-        slots=66 * 131_072, library_ms=k4_ms, bound_ms=k4_bound, bound_by="bytes")
+    # 7. slice C1's main path: BASELINE config 3, then the card against the CPU
+    k1_boids, k1_boids_timing = boids_phase(dev, errs)
 
-    def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra):
+    # 8. the halo step's boids scene
+    k3_boids, k3_boids_timing = halo_boids_phase(dev, errs)
+
+    # 9. K4 at the probe's shapes
+    k4 = k4_phase(dev)
+    errs["K4"] = k4["errs"]
+
+    def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
+              library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs[key]), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": None, **extra}
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms, **extra}
 
     print(json.dumps({"kernels": [
         entry("K1", k1, "multithreadedgameengine_tpu_torch/csrc/pair_pass_resident.cu",
@@ -876,7 +1154,8 @@ def main() -> int:
               k1_ms_10k, k1_plain_10k, bound_10k["K1"],
               {"shape": demo_shape, "eager_ms": k1_eager_10k, "shape_1m": big_shape,
                "ms_1m": k1_ms_1m, "plain_ms_1m": k1_plain_1m,
-               "bound_ms_1m": bound_1m["K1"][0]}),
+               "bound_ms_1m": bound_1m["K1"][0], "launches_boids_15k": k1_boids,
+               **k1_boids_timing}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],
@@ -886,7 +1165,12 @@ def main() -> int:
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:793", halo["launches"],
               halo["ms"], halo["plain_ms"], halo["bound"],
               {"shape": halo["shape"], "shape_10k": halo["shape_10k"], "ms_10k": halo["ms_10k"],
-               "plain_ms_10k": halo["plain_ms_10k"], "bound_ms_10k": halo["bound_ms_10k"]}),
+               "plain_ms_10k": halo["plain_ms_10k"], "bound_ms_10k": halo["bound_ms_10k"],
+               "launches_halo_boids": k3_boids, **k3_boids_timing}),
+        entry("K4", ck.expand, "multithreadedgameengine_tpu_torch/csrc/expand.cu",
+              "benchmarks/probe_expand_kernel.py:74", k4["launches"], k4["ms"],
+              k4["plain_ms"], k4["bound"], {"shape": k4["shape"]},
+              library_ms=k4["library_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

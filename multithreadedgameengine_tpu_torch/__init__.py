@@ -2,11 +2,13 @@
 ``multithreadedgameengine_tpu``.
 
 The JAX package stays the reference; this package mirrors its module names
-and runs its main path, the balls scene, in PyTorch on the card unless the
-caller asks for the CPU. On ``device="cuda"``, the entry points' default,
-the pair pass runs as a hand-written CUDA kernel (``ops/cuda_kernels.py``,
-built from ``csrc/`` at first use); on ``device="cpu"`` every kernel runs
-its plain PyTorch version. This package never imports JAX.
+and runs the balls scene, the boids scene (neighbour lists, user
+components) and the spatial-domain halo step in PyTorch on the card unless
+the caller asks for the CPU. On ``device="cuda"``, the entry points'
+default, the pair passes run as hand-written CUDA kernels
+(``ops/cuda_kernels.py``, built from ``csrc/`` at first use); on
+``device="cpu"`` every kernel runs its plain PyTorch version. This package
+never imports JAX.
 
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     eng = make_balls_engine(n_balls=10_000, seed=123456, device="cuda")
@@ -16,10 +18,13 @@ its plain PyTorch version. This package never imports JAX.
 from .behavior import EntityClass, TickCtx, read_field, write_field
 from .components import (
     Collider,
+    LightEmitter,
     MouseComponent,
     RigidBody,
+    ShadowCaster,
     SpriteRenderer,
     Transform,
+    define_component,
 )
 from .config import (
     EngineConfig,
@@ -58,6 +63,9 @@ __all__ = [
     "Collider",
     "SpriteRenderer",
     "MouseComponent",
+    "LightEmitter",
+    "ShadowCaster",
+    "define_component",
     "InputController",
     "InputState",
     "Mulberry32",

@@ -1,29 +1,32 @@
 """Entity classes and the batched logic phase — the GameObject/tick() analog.
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/behavior.py``
-(behavior.py:58-386, 596-722): :class:`EntityClass` with its host hooks
+(behavior.py:58-386, 596-811): :class:`EntityClass` with its host hooks
 (``setup``, ``on_spawned``, ``on_spawned_batch``, ``on_despawned``), the
-host contexts, field addressing by ``"component.field"`` path,
-:func:`run_logic_phase`, and :func:`run_logic_phase_masked` (behavior.py:
-723-811) for the halo step's rows in arbitrary order.
+host contexts, field addressing by ``"component.field"`` path (user
+components resolve through ``world.custom``), the neighbour view of
+:class:`TickCtx`, :func:`run_logic_phase`, and :func:`run_logic_phase_masked`
+for the halo step's rows in arbitrary order.
 
 Where the reference vmaps a per-entity tick, the port hands the tick each
 class's contiguous slice of the batch: ``ctx.x`` is the ``[count]`` tensor of
-the class's x values, ``ctx.mouse_x`` a 0-dim tensor, and the tick returns
-``[count]`` tensors (or scalars, broadcast). Ticks are written in torch.
+the class's x values, ``ctx.neighbor_ids`` the ``[count, S]`` slot table,
+``ctx.neighbor_col(path)`` ``[count, S]``, ``ctx.mouse_x`` a 0-dim tensor;
+the tick reduces over dim 1 and returns ``[count]`` tensors (or scalars,
+broadcast). Ticks are written in torch.
 
 For position residency the module also ports the layout-evaluated ticks
 (behavior.py:387-522): :class:`ForceTickCtx`, :func:`probe_layout_safe` and
 :func:`eval_layout_forces`, which runs a layout-safe tick once over the
 flattened solver layout instead of ``vmap``-ing it over slots.
 
-Not ported yet, and refused with ``NotImplementedError``: neighbour views
-(``uses_neighbors`` ticks, ROADMAP slice C item 11), the ``"emit"`` tick
-key (particles, slice C item 14) and custom components.
+Not ported yet, and refused with ``NotImplementedError``: the ``"emit"``
+tick key (particles, ROADMAP slice C item 14).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,14 +34,21 @@ import torch
 
 from .components import (
     Collider,
+    LightEmitter,
     MouseComponent,
     RigidBody,
+    ShadowCaster,
     SpriteRenderer,
     Transform,
 )
 from .config import EngineConfig
 from .inputs import InputState, key_index
+from .ops.spatial import NeighborLists
 from .state import World
+
+
+def snake_case(name: str) -> str:
+    return re.sub(r"(?<!^)(?=[A-Z])", "_", name).lower()
 
 
 # World attribute name for each built-in component class
@@ -48,6 +58,8 @@ BUILTIN_PATHS = {
     Collider: "collider",
     SpriteRenderer: "sprite",
     MouseComponent: "mouse",
+    LightEmitter: "light",
+    ShadowCaster: "shadow",
 }
 
 # Ergonomic aliases (gameObject.js:226-295 this.x/.vx accessors)
@@ -66,16 +78,34 @@ FIELD_ALIASES = {
 }
 
 
+def get_component(world: World, name: str):
+    """A built-in component by its World attribute, else a user component
+    of ``world.custom``."""
+    if name in BUILTIN_PATHS.values():
+        return getattr(world, name)
+    if name in world.custom:
+        return world.custom[name]
+    raise KeyError(f"unknown component {name!r}")
+
+
+def put_component(world: World, name: str, comp) -> World:
+    """``world`` with component ``name`` replaced (built-in or user)."""
+    if name in BUILTIN_PATHS.values():
+        return world.replace(**{name: comp})
+    return world.replace(custom={**world.custom, name: comp})
+
+
 def resolve_field(world: World, path: str) -> Tuple[Any, str, str]:
     """Resolve 'component.field' (or an alias) to (component, comp_attr,
-    field)."""
+    field). User components resolve through ``world.custom``."""
     path = FIELD_ALIASES.get(path, path)
     comp_name, _, field = path.partition(".")
     if not field:
         raise KeyError(f"field path {path!r} must be 'component.field'")
-    if comp_name not in BUILTIN_PATHS.values():
-        raise KeyError(f"unknown component {comp_name!r} in path {path!r}")
-    comp = getattr(world, comp_name)
+    try:
+        comp = get_component(world, comp_name)
+    except KeyError:
+        raise KeyError(f"unknown component {comp_name!r} in path {path!r}") from None
     if not hasattr(comp, field):
         raise KeyError(f"component {comp_name!r} has no field {field!r}")
     return comp, comp_name, field
@@ -88,7 +118,7 @@ def read_field(world: World, path: str) -> torch.Tensor:
 
 def write_field(world: World, path: str, value: torch.Tensor) -> World:
     comp, comp_name, field = resolve_field(world, path)
-    return world.replace(**{comp_name: comp.replace(**{field: value})})
+    return put_component(world, comp_name, comp.replace(**{field: value}))
 
 
 class EntityClass:
@@ -98,9 +128,14 @@ class EntityClass:
 
     components: Sequence[Any] = ()
 
-    #: whether the tick reads neighbour lists (not ported yet: a ticking
-    #: class with uses_neighbors=True is refused)
+    #: whether the tick reads its neighbour lists; when no ticking class
+    #: does, the frame builds none
     uses_neighbors: bool = True
+
+    #: world field paths the tick reads per neighbour: they ride the
+    #: neighbour table as payload channels, so ``ctx.neighbor_col(path)`` is
+    #: a slice instead of a gather (behavior.py:139-145)
+    neighbor_fields: Sequence[str] = ()
 
     # populated by the engine at registration
     entity_type: int = -1
@@ -147,6 +182,10 @@ class EntityClass:
         return seen
 
 
+# The host contexts carry ``sprites=None``: the port has no sprite registry
+# (rendering is ROADMAP slice D), which is what the reference's contexts
+# amount to when no texture is registered.
+
 class SetupCtx:
     """Host context for EntityClass.setup."""
 
@@ -155,6 +194,7 @@ class SetupCtx:
         self.start = start
         self.count = count
         self.rng = rng  # shared Mulberry32 stream
+        self.sprites = None
 
     def indices(self) -> np.ndarray:
         return np.arange(self.start, self.start + self.count)
@@ -167,6 +207,7 @@ class SpawnCtx:
         self.config = config
         self.index = index
         self.rng = rng
+        self.sprites = None
 
 
 class BatchSpawnCtx:
@@ -177,6 +218,7 @@ class BatchSpawnCtx:
         self.config = config
         self.indices = indices  # np.int32[n], claim order
         self.rng = rng
+        self.sprites = None
 
 
 class TickCtx:
@@ -184,19 +226,34 @@ class TickCtx:
 
     ``self_view`` holds every component's rows ``[start, start+count)``;
     ``x``, ``vx``, ``field(path)`` read from it. ``world`` and ``inputs`` are
-    the whole pre-tick world and the frame's inputs."""
+    the whole pre-tick world and the frame's inputs. The neighbour view
+    (behavior.py:331-373) is batched the same way: ``neighbor_ids`` ``[count,
+    S]`` (-1 gaps), ``neighbor_d2`` ``[count, S]``, ``neighbor_count``
+    ``[count]`` and ``neighbor_payload`` ``[count, S, F]`` or None.
 
-    __slots__ = ("i", "world", "inputs", "dt_ratio", "config", "self_view")
+    ``gather_fn``: a path -> global-id-indexed field resolver; under the
+    halo step neighbour ids are global while ``world`` holds routed rows."""
 
-    def __init__(self, i: torch.Tensor, world: World, inputs: InputState,
-                 dt_ratio: float, config: EngineConfig,
-                 self_view: Dict[str, Any]):
+    __slots__ = ("i", "world", "neighbor_ids", "neighbor_d2", "neighbor_count",
+                 "inputs", "dt_ratio", "config", "neighbor_payload",
+                 "payload_channels", "self_view", "gather_fn")
+
+    def __init__(self, i: torch.Tensor, world: World, neighbor_ids, neighbor_d2,
+                 neighbor_count, inputs: InputState, dt_ratio: float,
+                 config: EngineConfig, neighbor_payload=None, payload_channels=None,
+                 self_view: Optional[Dict[str, Any]] = None, gather_fn=None):
         self.i = i  # int32[count] entity indices
         self.world = world
+        self.neighbor_ids = neighbor_ids
+        self.neighbor_d2 = neighbor_d2
+        self.neighbor_count = neighbor_count
         self.inputs = inputs
         self.dt_ratio = dt_ratio
         self.config = config
+        self.neighbor_payload = neighbor_payload
+        self.payload_channels = payload_channels or {}
         self.self_view = self_view
+        self.gather_fn = gather_fn
 
     # -- self accessors (this.x / this.vx ... gameObject.js:226-295) --
     def _self_field(self, comp_name: str, field: str) -> torch.Tensor:
@@ -230,6 +287,45 @@ class TickCtx:
     @property
     def velocity_angle(self): return self._self_field("rigid_body", "velocity_angle")
 
+    # -- neighbours (this.neighbors / updateNeighbors, gameObject.js:700-729) --
+    @property
+    def neighbor_mask(self) -> torch.Tensor:
+        """Live slots: those holding a real id (the lists have -1 gaps)."""
+        return self.neighbor_ids >= 0
+
+    @property
+    def neighbor_ids_safe(self) -> torch.Tensor:
+        return torch.clamp(self.neighbor_ids, min=0)
+
+    def gather(self, path_or_array) -> torch.Tensor:
+        """A world field (or a raw ``[N]`` tensor) at the neighbour ids,
+        ``[count, S]``: the slow path, a random gather (declare the path in
+        ``neighbor_fields`` for a payload channel instead). Under the halo
+        step a path resolves through ``gather_fn``; a raw tensor cannot."""
+        if self.gather_fn is not None:
+            if not isinstance(path_or_array, str):
+                raise ValueError(
+                    "ctx.gather(raw_array) cannot run under the halo step "
+                    "(rows are slab-local while neighbor ids are global); "
+                    "pass the field path or declare it in neighbor_fields"
+                )
+            arr = self.gather_fn(path_or_array)
+        elif isinstance(path_or_array, str):
+            arr = read_field(self.world, path_or_array)
+        else:
+            arr = path_or_array
+        return arr[self.neighbor_ids_safe.to(torch.int64)]
+
+    def neighbor_col(self, path: str) -> torch.Tensor:
+        """Per-neighbour values of a world field, ``[count, S]``: a payload
+        channel when the field rides the table (declared, or x/y), else a
+        gather."""
+        path = FIELD_ALIASES.get(path, path)
+        ch = self.payload_channels.get(path)
+        if ch is not None and self.neighbor_payload is not None:
+            return self.neighbor_payload[..., ch]
+        return self.gather(path)
+
     # -- input shortcuts (Mouse statics / Keyboard proxy) --
     @property
     def mouse_x(self): return self.inputs.mouse_x
@@ -243,45 +339,68 @@ class TickCtx:
 
 
 def _entity_view(world: World, start: int, count: int) -> Dict[str, Any]:
-    """Every component's rows [start, start+count), as views."""
-    return {
-        name: getattr(world, name).map_tensors(lambda a: a[start:start + count])
-        for name in BUILTIN_PATHS.values()
-    }
+    """Every component's rows [start, start+count), as views (user
+    components included)."""
+    comps = {name: getattr(world, name) for name in BUILTIN_PATHS.values()}
+    comps.update(world.custom)
+    return {name: comp.map_tensors(lambda a: a[start:start + count])
+            for name, comp in comps.items()}
+
+
+def _refuse_emit(klass: type) -> None:
+    raise NotImplementedError(
+        f"{klass.__name__}.tick returned 'emit': device particle "
+        "emission is not ported yet (ROADMAP slice C, item 14)"
+    )
 
 
 def run_logic_phase(
     world: World,
+    nbr,
     inputs: InputState,
     cfg: EngineConfig,
     type_ranges: Sequence[Tuple[type, int, int]],
+    payload_channels: Optional[Dict[str, int]] = None,
 ) -> World:
     """Run each class's tick over its slot range, masked by ``active``
     (logic_worker.js:337-369). ``type_ranges``: (EntityClass, start, count).
-    Every tick reads the pre-tick world; the writes are applied after all
-    classes ran, as in the reference. A tick's ``"despawn"`` key clears the
-    entity's active flags."""
+    ``nbr``: one :class:`NeighborLists` over all rows, sliced per class, or
+    the per-class dict of ``neighbor_lists_by_class`` (a class missing from
+    it ticks against empty lists). Every tick reads the pre-tick world; the
+    writes are applied after all classes ran, as in the reference. A tick's
+    ``"despawn"`` key clears the entity's active flags."""
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
     despawn = None
     device = world.device
 
     for klass, start, count in type_ranges:
-        tick = getattr(klass, "tick", None)
-        if tick is None or count == 0:
+        tick_fn = _tick_fn(klass)
+        if tick_fn is None or count == 0:
             continue
-        tick_fn = tick.__func__ if isinstance(tick, (staticmethod, classmethod)) else tick
+        if isinstance(nbr, dict):
+            lists = nbr.get(klass.__name__)
+            if lists is None:
+                ids = torch.full((count, 1), -1, dtype=torch.int32, device=device)
+                d2 = torch.zeros((count, 1), dtype=torch.float32, device=device)
+                cnt = torch.zeros((count,), dtype=torch.int32, device=device)
+                payload = torch.zeros((count, 1, 0), dtype=torch.float32, device=device)
+            else:
+                ids, d2, cnt, payload = lists.ids, lists.d2, lists.count, lists.payload.data
+        else:
+            sl = slice(start, start + count)
+            ids, d2, cnt = nbr.ids[sl], nbr.d2[sl], nbr.count[sl]
+            payload = nbr.payload.data[sl]
         idx = torch.arange(start, start + count, dtype=torch.int32, device=device)
-        ctx = TickCtx(idx, world, inputs, cfg.dt_ratio, cfg,
-                      _entity_view(world, start, count))
+        ctx = TickCtx(idx, world, ids, d2, cnt, inputs, cfg.dt_ratio, cfg,
+                      neighbor_payload=payload if payload.shape[-1] > 0 else None,
+                      payload_channels=payload_channels,
+                      self_view=_entity_view(world, start, count))
         outs = tick_fn(ctx) or {}
         active_slice = world.transform.active[start:start + count]
 
         for path, value in outs.items():
             if path == "emit":
-                raise NotImplementedError(
-                    f"{klass.__name__}.tick returned 'emit': device particle "
-                    "emission is not ported yet (ROADMAP slice C, item 14)"
-                )
+                _refuse_emit(klass)
             if path == "despawn":
                 dm = torch.zeros_like(world.transform.active)
                 dm[start:start + count] = torch.as_tensor(value, device=device) & active_slice
@@ -309,28 +428,26 @@ def run_logic_phase(
 
 def run_logic_phase_masked(
     world: World,
+    nbr: NeighborLists,
     inputs: InputState,
     cfg: EngineConfig,
     type_specs: Sequence[Tuple[type, int]],
+    payload_channels: Optional[Dict[str, int]] = None,
     row_ids: Optional[torch.Tensor] = None,
     gather_fn=None,
 ) -> World:
     """:func:`run_logic_phase` for rows in arbitrary order (the reference's
-    behavior.py:723-811): the halo step's slab chunks, where class slot
+    behavior.py:723-811): the halo step's slab rows, where class slot
     ranges do not exist. ``type_specs``: (EntityClass, entity_type id).
-    Every class's tick runs over all rows and is merged under ``active &
-    entity_type == id``; writes apply after every class ran; ``"despawn"``
-    clears the active flags.
+    Every class's tick runs over all rows, with ``nbr`` covering all rows,
+    and is merged under ``active & entity_type == id``; writes apply after
+    every class ran; ``"despawn"`` clears the active flags.
 
     ``row_ids``: the rows' global entity ids, handed to the tick as
     ``ctx.i`` (default ``arange``; the reference hands local row indices).
-    Not ported yet, and refused: the ``"emit"`` key (ROADMAP slice C, item
-    14), ticks that read neighbours and ``gather_fn`` (slice C, item 11)."""
-    if gather_fn is not None:
-        raise NotImplementedError(
-            "gather_fn (ctx.gather of neighbour fields) is not ported to "
-            "PyTorch yet (ROADMAP: slice C, item 11)"
-        )
+    ``gather_fn``: the resolver of ``ctx.gather`` for global neighbour ids
+    (the halo step's, over the home chunks). Not ported yet, and refused:
+    the ``"emit"`` key (ROADMAP slice C, item 14)."""
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
     despawn = None
     n = world.transform.x.shape[0]
@@ -338,23 +455,20 @@ def run_logic_phase_masked(
     if row_ids is None:
         row_ids = torch.arange(n, dtype=torch.int32, device=device)
     view = _entity_view(world, 0, n)
+    payload = nbr.payload.data
     for klass, type_id in type_specs:
         tick_fn = _tick_fn(klass)
         if tick_fn is None:
             continue
-        if klass.uses_neighbors:
-            raise NotImplementedError(
-                f"{klass.__name__}: a tick that reads neighbours is not ported "
-                "to PyTorch yet (ROADMAP: slice C, item 11)"
-            )
-        outs = tick_fn(TickCtx(row_ids, world, inputs, cfg.dt_ratio, cfg, view)) or {}
+        ctx = TickCtx(row_ids, world, nbr.ids, nbr.d2, nbr.count, inputs, cfg.dt_ratio,
+                      cfg, neighbor_payload=payload if payload.shape[-1] > 0 else None,
+                      payload_channels=payload_channels, self_view=view,
+                      gather_fn=gather_fn)
+        outs = tick_fn(ctx) or {}
         mask_cls = world.transform.active & (world.transform.entity_type == type_id)
         for path, value in outs.items():
             if path == "emit":
-                raise NotImplementedError(
-                    f"{klass.__name__}.tick returned 'emit': device particle "
-                    "emission is not ported yet (ROADMAP slice C, item 14)"
-                )
+                _refuse_emit(klass)
             if path == "despawn":
                 dm = torch.as_tensor(value, device=device) & mask_cls
                 despawn = dm if despawn is None else despawn | dm
@@ -525,4 +639,6 @@ def apply_despawn_mask(world: World, mask: torch.Tensor) -> World:
         rigid_body=off(world.rigid_body),
         collider=off(world.collider),
         sprite=off(world.sprite),
+        light=off(world.light),
+        shadow=off(world.shadow),
     )

@@ -2,15 +2,17 @@
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/components.py:59-225``.
 Each component holds dense ``[N]`` tensors, one slot per entity, with the
-same field names as the reference package. Built-in components ported so
-far: Transform, RigidBody, Collider, SpriteRenderer and MouseComponent
-(LightEmitter, ShadowCaster, Particles and ``define_component`` come with
-the lighting and particle slices).
+same field names as the reference package: the built-ins Transform,
+RigidBody, Collider, SpriteRenderer, MouseComponent, LightEmitter and
+ShadowCaster (components.py:59-261; every world carries all seven), and
+user components made by :func:`define_component` (:336-374). Particles and
+the shadow-sprite buffer come with the lighting and particle slice.
 
 dtypes are explicit: float32 for continuous state, int32 for ids and
-counters, bool for flags. ``tint``/``base_tint`` are uint32 in the reference;
-torch's uint32 supports few ops, so here they are **int64 holding the
-unsigned 32-bit value** (0 .. 2^32-1), which round-trips exactly.
+counters, bool for flags. ``tint``/``base_tint``/``light_color`` (and a
+user component's ``"u32"`` fields) are uint32 in the reference; torch's
+uint32 supports few ops, so here they are **int64 holding the unsigned
+32-bit value** (0 .. 2^32-1), which round-trips exactly.
 
 Components are values: update one with ``replace(field=tensor)``, which
 returns a new dataclass, as the reference's flax structs do.
@@ -19,7 +21,7 @@ returns a new dataclass, as the reference's flax structs do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -37,16 +39,20 @@ class Struct:
         return dataclasses.replace(self, **changes)
 
     def map_tensors(self, fn: Callable[[torch.Tensor], torch.Tensor]):
-        """A copy with ``fn`` applied to every tensor leaf, recursively."""
-        out = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
+        """A copy with ``fn`` applied to every tensor leaf, recursively
+        (through nested structs and dicts of them)."""
+
+        def leaf(v):
             if isinstance(v, torch.Tensor):
-                v = fn(v)
-            elif isinstance(v, Struct):
-                v = v.map_tensors(fn)
-            out[f.name] = v
-        return dataclasses.replace(self, **out)
+                return fn(v)
+            if isinstance(v, Struct):
+                return v.map_tensors(fn)
+            if isinstance(v, dict):
+                return {k: leaf(c) for k, c in v.items()}
+            return v
+
+        return dataclasses.replace(
+            self, **{f.name: leaf(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
 def _zeros(n: int, dtype, device) -> torch.Tensor:
@@ -193,6 +199,52 @@ class MouseComponent(Struct):
 _make_zeros(MouseComponent, {f.name: B for f in dataclasses.fields(MouseComponent)})
 
 
+@dataclasses.dataclass
+class LightEmitter(Struct):
+    """LightEmitter.js:4-9."""
+
+    active: torch.Tensor
+    light_color: torch.Tensor  # int64 holding a uint32
+    light_intensity: torch.Tensor
+    height: torch.Tensor
+
+
+_make_zeros(LightEmitter, dict(active=B, light_color=TINT, light_intensity=F32, height=F32))
+
+
+@dataclasses.dataclass
+class ShadowCaster(Struct):
+    """ShadowCaster.js:12-25, the per-entity half: shadow parameters."""
+
+    active: torch.Tensor
+    shadow_radius: torch.Tensor
+    height: torch.Tensor  # caster height: taller entities cast longer shadows
+
+
+_make_zeros(ShadowCaster, dict(active=B, shadow_radius=F32, height=F32))
+
+
+#: ``define_component`` dtype names (the reference's table, components.py:
+#: 336-341), with uint32 held as int64
+COMPONENT_DTYPES = {"f32": F32, "i32": I32, "u32": TINT, "bool": B}
+
+
+def define_component(name: str, schema: Dict[str, str]):
+    """A user component type from a ``{field: dtype}`` schema, dtype one of
+    ``'f32' | 'i32' | 'u32' | 'bool'`` (components.py:344-374): a dataclass
+    of ``[N]`` tensors with ``zeros(n, device)``, used in an entity class's
+    ``components`` like the built-ins. The engine mounts it in
+    ``world.custom`` under its snake-case name."""
+    for f_name, d in schema.items():
+        if d not in COMPONENT_DTYPES:
+            raise ValueError(f"{name}.{f_name}: unknown dtype {d!r}")
+    cls = dataclasses.make_dataclass(name, [(f, torch.Tensor) for f in schema], bases=(Struct,))
+    _make_zeros(cls, {f: COMPONENT_DTYPES[d] for f, d in schema.items()})
+    cls.SCHEMA = dict(schema)
+    cls.__doc__ = f"User component {name} ({schema})"
+    return cls
+
+
 # Built-in components present in every World (dense allocation), keyed by
 # their World attribute name.
 BUILTIN_COMPONENTS = {
@@ -201,4 +253,6 @@ BUILTIN_COMPONENTS = {
     "collider": Collider,
     "sprite": SpriteRenderer,
     "mouse": MouseComponent,
+    "light": LightEmitter,
+    "shadow": ShadowCaster,
 }

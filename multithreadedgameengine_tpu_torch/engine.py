@@ -6,11 +6,14 @@ spawn/despawn control plane (``spawn``, ``spawn_batch``, ``despawn``,
 ``_apply_columns``), ``step(n)``, ``snapshot``/``restore``, ``stats``,
 ``update_physics_config``, the Mouse as entity 0 and ``apply_inputs``.
 
-One frame (the reference's ``one_step_impl`` with the grid solver and no
-neighbour lists, engine.py:1460-1824), run eagerly:
+One frame (the reference's ``one_step_impl`` with the grid solver,
+engine.py:1460-1824), run eagerly:
 
 1. ``apply_inputs`` writes the mouse as entity 0;
-2. ``behavior.run_logic_phase`` runs the ticks;
+2. when a ticking class reads neighbours, the neighbour lists
+   (``ops.spatial.neighbor_lists``, or ``neighbor_lists_by_class`` with
+   ``spatial.per_class_assembly``) with the declared payload channels; then
+   ``behavior.run_logic_phase`` runs the ticks;
 3. ``render.extract.advance_animation``;
 4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver,
    derived properties), or with position residency
@@ -22,7 +25,9 @@ the reference resolves before tracing: the solver geometry; solver "auto"
 as "pallas", the resident solver; the pair kernel (K1, or K2 where the
 reference's gate picks it, ``physics_grid.use_symmetric``); the bin and
 attribute caches of ``rebin_interval > 1``; position residency; the banded
-boundary; and whether ``step(n)`` runs the lazy-readback chunk.
+boundary; whether ``step(n)`` runs the lazy-readback chunk; the cell-scan
+radius (``_resolve_spatial``), whether the frame builds neighbour lists, the
+per-class assembly specs and the payload channels (``_payload_plan``).
 
 ``device`` defaults to ``"cuda"``, which runs the CUDA kernels; ``"cpu"``
 runs their plain PyTorch versions. There is no automatic choice and no
@@ -36,6 +41,7 @@ ignored.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -51,9 +57,12 @@ from .behavior import (
     SetupCtx,
     SpawnCtx,
     _tick_fn,
+    get_component,
     probe_layout_safe,
+    put_component,
     read_field,
     run_logic_phase,
+    snake_case,
     write_field,
 )
 from .components import Collider, MouseComponent
@@ -69,6 +78,12 @@ from .ops.physics_grid import (
     resident_sync_entity,
     solver_geometry,
     use_symmetric,
+)
+from .ops.spatial import (
+    NeighborLists,
+    empty_neighbor_lists,
+    neighbor_lists,
+    neighbor_lists_by_class,
 )
 from .render.extract import advance_animation
 from .rng import Mulberry32
@@ -157,6 +172,16 @@ class StepPlan:
     pin_rows: Tuple[int, ...] = ()
     #: > 0: the banded boundary, sized for this per-frame displacement
     band_vel_bound: float = 0.0
+    #: neighbour lists: built each frame when a ticking class reads them;
+    #: else every tick sees ``empty_nbr``
+    need_neighbors: bool = False
+    empty_nbr: Optional[NeighborLists] = None
+    #: per-class assembly: (class name, start, count, scan radius) each
+    nbr_specs: Tuple[Tuple[str, int, int, int], ...] = ()
+    #: payload channel of each declared per-neighbour field, and the fields
+    #: of channels 3.. in order
+    payload_channels: Dict[str, int] = dataclasses.field(default_factory=dict)
+    extra_paths: Tuple[str, ...] = ()
 
 
 class Engine:
@@ -179,6 +204,8 @@ class Engine:
         ),
         "transform": dict(x=0.0, y=0.0, rotation=0.0),
         "collider": dict(active=True),
+        "light": dict(active=True),
+        "shadow": dict(active=True),
         "sprite": dict(
             active=True, tint=0xFFFFFF, base_tint=0xFFFFFF, alpha=1.0,
             scale_x=1.0, scale_y=1.0, anchor_x=0.5, anchor_y=1.0,
@@ -201,6 +228,8 @@ class Engine:
         self.input.camera_y = self.config.world_height / 2
 
         self.classes: "OrderedDict[str, RegisteredClass]" = OrderedDict()
+        # user components by snake-case name (mounted in world.custom)
+        self._custom_components: Dict[str, Any] = {}
         self._next_type = 0
         self._next_index = 0
         self.world: Optional[World] = None
@@ -231,9 +260,6 @@ class Engine:
             raise RuntimeError("register_entity_class must precede init()")
         if not issubclass(cls, EntityClass):
             raise TypeError(f"{cls.__name__} must subclass EntityClass")
-        if getattr(cls, "tick", None) is not None and cls.uses_neighbors and count > 0:
-            _refuse(f"{cls.__name__}: a tick that reads neighbours "
-                    "(uses_neighbors=True)", "slice C, item 11")
         for parent in cls.__mro__[1:]:
             if parent is EntityClass or not issubclass(parent, EntityClass):
                 break
@@ -256,10 +282,18 @@ class Engine:
     def _register_one(self, cls: type, count: int) -> None:
         paths = []
         for comp in cls.collect_components():
-            if comp not in BUILTIN_PATHS:
-                _refuse(f"{cls.__name__}: component {comp.__name__}",
-                        "slice C, item 14 (custom, light and shadow components)")
-            paths.append(BUILTIN_PATHS[comp])
+            if comp in BUILTIN_PATHS:
+                paths.append(BUILTIN_PATHS[comp])
+                continue
+            if not hasattr(comp, "SCHEMA"):
+                raise TypeError(f"{cls.__name__}: component {comp!r} is not a built-in "
+                                "and was not made by define_component")
+            name = snake_case(comp.__name__)
+            existing = self._custom_components.get(name)
+            if existing is not None and existing is not comp:
+                raise ValueError(f"conflicting custom component name {name!r}")
+            self._custom_components[name] = comp
+            paths.append(name)
         template = {
             f"{comp_path}.{field}": value
             for comp_path in paths
@@ -292,7 +326,7 @@ class Engine:
         if self._initialized:
             raise RuntimeError("already initialized")
         n = max(1, self.entity_count)
-        world = make_world(n, self.device)
+        world = make_world(n, self.device, self._custom_components)
         # grid-solver bin cache (physics.rebin_interval): installed at init,
         # stamp -1 = never binned
         if self.config.physics.rebin_interval > 1:
@@ -489,7 +523,7 @@ class Engine:
         reg = self._class_of_index(index)
         updates = {"transform.active": False}
         for comp_path in reg.component_paths:
-            if hasattr(getattr(self.world, comp_path), "active"):
+            if hasattr(get_component(self.world, comp_path), "active"):
                 updates[f"{comp_path}.active"] = False
         return updates
 
@@ -528,8 +562,8 @@ class Engine:
             comp_name, _, field = path.partition(".")
             idx = torch.from_numpy(np.asarray(np_idx, np.int64)).to(self.device)
             vals = torch.from_numpy(np.asarray(np_vals).astype(np.float32)).to(self.device)
-            comp = scatter_fields(getattr(world, comp_name), idx, {field: vals})
-            world = world.replace(**{comp_name: comp})
+            comp = scatter_fields(get_component(world, comp_name), idx, {field: vals})
+            world = put_component(world, comp_name, comp)
         # host writes invalidate the solver's bin cache: the next frame
         # re-bins, so despawns drop out of the pair search at once and
         # spawns collide from their first frame (engine.py:1093-1102)
@@ -557,6 +591,62 @@ class Engine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    def _resolve_spatial(self) -> EngineConfig:
+        """The static cell-scan radius from the registered visual ranges
+        when ``spatial.max_cell_radius`` is 0 (engine.py:1127-1142). The
+        mouse (entity 0, range 150) is left out: only the debug overlay
+        reads its range. May update self.config."""
+        cfg = self.config
+        if cfg.spatial.max_cell_radius > 0:
+            return cfg
+        vr = float(self.world.collider.visual_range[1:].max()) if self.entity_count > 1 else 0.0
+        radius = max(1, math.ceil(vr / cfg.spatial.cell_size)) if vr > 0 else 1
+        cfg = dataclasses.replace(
+            cfg, spatial=dataclasses.replace(cfg.spatial, max_cell_radius=radius))
+        self.config = cfg
+        return cfg
+
+    def _payload_plan(self, cfg: EngineConfig):
+        """The union of the ticking classes' declared per-neighbour fields:
+        they ride the neighbour table as channels 3.. after id, x and y
+        (engine.py:1144-1167; the events channel comes with item 13).
+        Returns (payload_channels, extra_paths)."""
+        declared: List[str] = []
+        for reg in self.classes.values():
+            if reg.count > 0:
+                for p in getattr(reg.cls, "neighbor_fields", ()):
+                    p = FIELD_ALIASES.get(p, p)
+                    if p not in declared:
+                        declared.append(p)
+        payload_channels = {"transform.x": 1, "transform.y": 2}
+        extra_paths = [p for p in declared if p not in payload_channels]
+        for k, p in enumerate(extra_paths):
+            payload_channels[p] = 3 + k
+        return payload_channels, tuple(extra_paths)
+
+    def _ticks_read_neighbors(self) -> bool:
+        """Whether a registered class ticks and reads its neighbour lists
+        (engine.py:1248-1260: events, the neighbour-list solver and shadows,
+        its other reasons to build lists, are refused here)."""
+        return any(reg.count > 0 and _tick_fn(reg.cls) is not None and reg.cls.uses_neighbors
+                   for reg in self.classes.values())
+
+    def _neighbor_specs(self, cfg: EngineConfig) -> Tuple[Tuple[str, int, int, int], ...]:
+        """Per-class assembly (engine.py:1396-1438, without the light and
+        hooked classes of items 13-14): each ticking class that reads
+        neighbours scans ceil(its largest visual range / cell) cells,
+        capped at the global radius."""
+        vr = self.world.collider.visual_range.cpu().numpy()
+        specs = []
+        for reg in self.classes.values():
+            if reg.count == 0 or _tick_fn(reg.cls) is None or not reg.cls.uses_neighbors:
+                continue
+            s, c = reg.start_index, reg.count
+            vr_c = float(vr[s:s + c].max())
+            r_c = max(1, math.ceil(vr_c / cfg.spatial.cell_size)) if vr_c > 0 else 1
+            specs.append((reg.cls.__name__, s, c, min(r_c, max(1, cfg.spatial.max_cell_radius))))
+        return tuple(specs)
+
     def _solver_plan(self, cfg: EngineConfig):
         """The grid solver's geometry from the registered radii, and solver
         "auto" resolved as "pallas" (the reference's choice on its
@@ -609,7 +699,7 @@ class Engine:
         resident solver, as the reference picks it on its accelerator); the
         pair kernel; the solver caches, installed at the layout's shape with
         their stamps reset so the next frame rebins; residency; the band."""
-        cfg, geom, _forced = self._solver_plan(self.config)
+        cfg, geom, _forced = self._solver_plan(self._resolve_spatial())
         if geom is None:
             _refuse("a scene with no collider radius (neighbour-list solver)",
                     "slice C, item 12")
@@ -649,6 +739,11 @@ class Engine:
             w = w.replace(solver_pos_step=-1)
         self.world = w
         residency = specs is not None
+        need_neighbors = self._ticks_read_neighbors()
+        nbr_specs = ()
+        if need_neighbors and cfg.spatial.per_class_assembly and cfg.spatial.method != "bruteforce":
+            nbr_specs = self._neighbor_specs(cfg)
+        payload_channels, extra_paths = self._payload_plan(cfg)
         return StepPlan(
             cfg=cfg,
             solver_geom=geom,
@@ -665,13 +760,32 @@ class Engine:
             # a larger max_vel re-plans (_track_radius)
             band_vel_bound=(max(100.0, self._max_vel_seen)
                             if residency and ph.boundary_band == "auto" else 0.0),
+            need_neighbors=need_neighbors,
+            empty_nbr=None if need_neighbors else empty_neighbor_lists(n, dev),
+            nbr_specs=nbr_specs,
+            payload_channels=payload_channels,
+            extra_paths=extra_paths,
         )
 
     def _one_step(self, world: World, inputs: InputState) -> Tuple[World, Dict[str, torch.Tensor]]:
         plan = self._plan
         cfg = plan.cfg
         world = apply_inputs(world, inputs)
-        world = run_logic_phase(world, inputs, cfg, plan.type_ranges)
+        if plan.need_neighbors:  # the frame's neighbour block (engine.py:1472-1518)
+            t, c = world.transform, world.collider
+            extras = tuple(read_field(world, p) for p in plan.extra_paths)
+            if plan.nbr_specs:
+                nbr, n_binned = neighbor_lists_by_class(
+                    t.x, t.y, t.active, c.visual_range, cfg, extras, plan.nbr_specs)
+            else:
+                nbr = neighbor_lists(t.x, t.y, t.active, c.visual_range, cfg, extras)
+                n_binned = nbr.n_binned
+        else:
+            nbr = plan.empty_nbr
+            n_binned = nbr.n_binned
+        world = run_logic_phase(world, nbr, inputs, cfg, plan.type_ranges,
+                                plan.payload_channels)
+        del nbr  # the candidate rows (288 MB on boids_15k) go before the solver runs
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
         if plan.residency:
             world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
@@ -687,6 +801,8 @@ class Engine:
         t = world.transform
         metrics = {
             "active_count": torch.sum(t.active, dtype=torch.int32),
+            # entities in the neighbour grid table (-1: no lists built)
+            "n_binned": n_binned,
             # grid-solver cell-capacity overflow: entities degraded to
             # boundary-only this frame
             "solver_overflow": solver_overflow,

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .components import BUILTIN_COMPONENTS
+from .components import BUILTIN_COMPONENTS, define_component
 from .config import EngineConfig, make_config
 from .state import World
 
@@ -26,6 +26,9 @@ _NP_DTYPE = {
     torch.int64: np.int64,
     torch.bool: np.bool_,
 }
+#: a reference user component's field dtype -> its define_component name
+_SCHEMA_OF_NP = {np.dtype(np.float32): "f32", np.dtype(np.int32): "i32",
+                 np.dtype(np.uint32): "u32", np.dtype(np.bool_): "bool"}
 
 def config_from(cfg) -> EngineConfig:
     """The port's EngineConfig with the field values of ``cfg``."""
@@ -77,35 +80,41 @@ def _flat_from_reference(flat: np.ndarray, in_grid: np.ndarray, ref_shape, geom)
 def world_from_jax(np_world, device, geom=None) -> World:
     """The port's World from a reference World whose leaves are numpy.
 
-    Every field of the five ported components is copied with the port's
-    dtype (uint32 tints become int64, see ``components``). The solver caches
+    Every field of the seven built-in components is copied with the port's
+    dtype (uint32 colours become int64, see ``components``), and so is every
+    user component of ``World.custom``, as a port component of the same
+    name and schema (``define_component``). The solver caches
     (bin cache, attribute and position layouts, their stamps) are converted
     to the port's layout when present, which needs the solver geometry
     ``geom`` of the run (a ``GridGeom``): so a reference world stepped
     partway between rebins continues in the port. Reference state the port
-    does not run yet (the screen-event tables, particles, custom components)
-    must be absent; the event and decal tables of a world without those
+    does not run yet (the screen-event tables, particles) must be absent;
+    the event, decal and shadow-sprite tables of a world without those
     features are placeholders and are left behind."""
     unported = [leaf for leaf in ("prev_onscreen",)
                 if getattr(np_world, leaf, None) is not None]
     if np.asarray(np_world.particles.x).size:
         unported.append("particles")
-    if np_world.custom:
-        unported.append("custom")
     if unported:
         raise NotImplementedError(
             f"World.{', World.'.join(unported)} set: not ported to PyTorch yet"
         )
-    comps = {}
-    for name, cls in BUILTIN_COMPONENTS.items():
-        src = getattr(np_world, name)
-        comps[name] = cls(**{
+    def convert(cls, src):
+        return cls(**{
             field: torch.from_numpy(
                 np.ascontiguousarray(np.asarray(getattr(src, field)))
                 .astype(_NP_DTYPE[dtype])
             ).to(device)
             for field, dtype in cls.DTYPES.items()
         })
+
+    comps = {name: convert(cls, getattr(np_world, name))
+             for name, cls in BUILTIN_COMPONENTS.items()}
+    custom = {}
+    for name, src in np_world.custom.items():
+        schema = {f.name: _SCHEMA_OF_NP[np.asarray(getattr(src, f.name)).dtype]
+                  for f in dataclasses.fields(src)}
+        custom[name] = convert(define_component(type(src).__name__, schema), src)
     solver = {}
     if getattr(np_world, "solver_flat", None) is not None:
         if geom is None:
@@ -126,4 +135,5 @@ def world_from_jax(np_world, device, geom=None) -> World:
                     _layout_from_reference(np.asarray(a), geom)).to(device)
         if getattr(np_world, "solver_pos_step", None) is not None:
             solver["solver_pos_step"] = int(np.asarray(np_world.solver_pos_step))
-    return World(**comps, step_count=int(np.asarray(np_world.step_count)), **solver)
+    return World(**comps, step_count=int(np.asarray(np_world.step_count)), custom=custom,
+                 **solver)

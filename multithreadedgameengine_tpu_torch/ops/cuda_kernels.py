@@ -28,6 +28,11 @@ solver's binning fills them (``tests/test_torch_slot_prefix.py``). A
 capacity above what the smallest tile stages is refused with a
 ``ValueError``.
 
+K4 replaces the probe kernel ``benchmarks/probe_expand_kernel.py::expand``
+(its only caller in the reference is that probe): :func:`expand`, source
+``csrc/expand.cu``, which places x and y at distinct flat slots of two
+zeroed outputs, chunk by chunk. It only moves words.
+
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
 
@@ -500,3 +505,82 @@ def pair_pass_grid(
 
 
 pair_pass_grid.launches = 0
+
+
+def _check_expand(x: Tensor, y: Tensor, order: Tensor, flat: Tensor, bounds: Tensor,
+                  total: int, chunk: int) -> int:
+    """Check K4's inputs; returns the number of chunks."""
+    if chunk <= 0 or chunk % 8 or total <= 0 or total % chunk:
+        raise ValueError(f"total {total} must be a positive multiple of chunk {chunk}, "
+                         "itself a positive multiple of 8")
+    if total >= 2**31 - 1:
+        raise ValueError("total too large for int32 slots")
+    n_chunks = total // chunk
+    n = x.shape[0] if x.dim() == 1 else -1
+    for name, t, dtype, shape in (
+        ("x", x, torch.float32, (n,)), ("y", y, torch.float32, (n,)),
+        ("order", order, torch.int32, (n,)), ("flat", flat, torch.int32, (n,)),
+        ("bounds", bounds, torch.int32, (n_chunks + 1,)),
+    ):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return n_chunks
+
+
+def expand_plain(x: Tensor, y: Tensor, order: Tensor, flat: Tensor, bounds: Tensor,
+                 total: int, chunk: int) -> Tuple[Tensor, Tensor]:
+    """K4 in plain PyTorch: two zeroed outputs of ``total`` slots and an
+    index write of x and y at ``flat`` for the entities of every chunk's
+    range ``order[bounds[t]:bounds[t+1]]``.
+
+    ``x``/``y``: f32 ``[N]``; ``order``: int32 ``[N]``, the entities sorted
+    by slot; ``flat``: int32 ``[N]``, distinct slots in ``[0, total)``, and
+    those of chunk t's range in ``[t * chunk, (t+1) * chunk)``; ``bounds``:
+    int32 ``[total // chunk + 1]``, ascending. Returns ``(ox, oy)``, f32
+    ``[total // chunk * 8, chunk // 8]`` (the reference's layout, which is
+    slot order): ``ox.view(-1)[flat[g]] == x[g]``, 0.0 elsewhere."""
+    n_chunks = _check_expand(x, y, order, flat, bounds, total, chunk)
+    # the chunks' ranges tile [bounds[0], bounds[-1]) of the sorted order
+    g = order[int(bounds[0]):int(bounds[-1])].to(torch.int64)
+    dst = flat[g].to(torch.int64)
+    ox = torch.zeros(total, dtype=torch.float32, device=x.device)
+    oy = torch.zeros(total, dtype=torch.float32, device=x.device)
+    ox.index_copy_(0, dst, x[g])
+    oy.index_copy_(0, dst, y[g])
+    return ox.view(n_chunks * 8, chunk // 8), oy.view(n_chunks * 8, chunk // 8)
+
+
+def expand(x: Tensor, y: Tensor, order: Tensor, flat: Tensor, bounds: Tensor,
+           total: int, chunk: int) -> Tuple[Tensor, Tensor]:
+    """One K4 pass (see :func:`expand_plain` for the contract). CPU tensors
+    run the plain version; CUDA tensors launch the kernel on the current
+    stream and raise if the launch is refused."""
+    n_chunks = _check_expand(x, y, order, flat, bounds, total, chunk)
+    if x.device.type == "cpu":
+        return expand_plain(x, y, order, flat, bounds, total, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"expand runs on cpu or cuda, not {x.device}")
+    from . import _build
+
+    lib = _build.load()
+    ox = torch.empty((n_chunks * 8, chunk // 8), dtype=torch.float32, device=x.device)
+    oy = torch.empty_like(ox)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.expand_launch(
+            x.data_ptr(), y.data_ptr(), order.data_ptr(), flat.data_ptr(), bounds.data_ptr(),
+            ox.data_ptr(), oy.data_ptr(), n_chunks, chunk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"expand: CUDA launch failed with error {err}")
+    expand.launches += 1
+    return ox, oy
+
+
+expand.launches = 0

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/state.py`` (World,
 make_world, EntityPool, scatter_fields; state.py:42-328). The world holds the
-five built-in components of the ported slice as dense ``[N]`` tensors, plus
-the frame counter.
+seven built-in components as dense ``[N]`` tensors, the user components
+(``define_component``) in ``custom`` under their snake-case names, and the
+frame counter.
 
 ``step_count`` is a host int: the host drives every frame of an eager
 PyTorch step, so it always knows the count, and the pair kernel takes it as
@@ -21,15 +22,17 @@ belong to features this port refuses so far and are not allocated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .components import (
     Collider,
+    LightEmitter,
     MouseComponent,
     RigidBody,
+    ShadowCaster,
     SpriteRenderer,
     Struct,
     Transform,
@@ -45,8 +48,12 @@ class World(Struct):
     collider: Collider
     sprite: SpriteRenderer
     mouse: MouseComponent
+    light: LightEmitter
+    shadow: ShadowCaster
     # frame counter (syncData[0] analog, gameEngine.js:718-738)
     step_count: int = 0
+    # user-defined components keyed by their snake-case name (state.py:53-54)
+    custom: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # grid-solver bin cache (physics.rebin_interval > 1; None otherwise):
     # each entity's flat slot in the solver layout [cap, R+2, C+2] as of the
     # last rebin (``cap*(R+2)*(C+2)`` when not in the grid), the in-capacity
@@ -79,13 +86,19 @@ class World(Struct):
         return self.transform.x.device
 
 
-def make_world(n_entities: int, device) -> World:
+def make_world(n_entities: int, device,
+               custom_components: Optional[Dict[str, Any]] = None) -> World:
+    """A zeroed world; ``custom_components``: {name: component class}."""
     return World(
         transform=Transform.zeros(n_entities, device),
         rigid_body=RigidBody.zeros(n_entities, device),
         collider=Collider.zeros(n_entities, device),
         sprite=SpriteRenderer.zeros(n_entities, device),
         mouse=MouseComponent.zeros(n_entities, device),
+        light=LightEmitter.zeros(n_entities, device),
+        shadow=ShadowCaster.zeros(n_entities, device),
+        custom={name: cls.zeros(n_entities, device)
+                for name, cls in (custom_components or {}).items()},
     )
 
 

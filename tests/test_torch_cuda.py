@@ -1,10 +1,12 @@
-"""K1, K2 and K3 on the card: each CUDA kernel against its plain PyTorch
-version (K2 with and without the folded clamp), the edges of the tiled
-passes K1, K2 and K3 (full cells, non-colliders among a cell's occupants,
-grids that are ragged against the tile or narrower than it, capacities 1 to
-64, the capacity limit), K1's bit-for-bit pass-through of the slots it does
-not move, the wrappers' checks and launch counts, and the ported slices on
-``cuda`` against the same slices on ``cpu``. Marked ``cuda``;
+"""K1-K4 on the card: each CUDA kernel against its plain PyTorch version
+(K2 with and without the folded clamp; K4 bit for bit), the edges of the
+tiled passes K1, K2 and K3 (full cells, non-colliders among a cell's
+occupants, grids that are ragged against the tile or narrower than it,
+capacities 1 to 64, the capacity limit), K1's bit-for-bit pass-through of
+the slots it does not move, the wrappers' checks and launch counts (K4
+raising, not falling back, without its library), and the ported slices on
+``cuda`` against the same slices on ``cpu`` (the boids scene and its halo
+step included). Marked ``cuda``;
 each test skips without a card.
 On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``
@@ -403,3 +405,124 @@ def test_resident_slice_on_card_matches_cpu(cuda):
     tol = 2 * float(np.spacing(np.float32(1200.0)))
     assert (a.transform.x - b.transform.x).abs().max().item() <= tol
     assert (a.transform.y - b.transform.y).abs().max().item() <= tol
+
+
+def k4_args(device, n, chunk, n_chunks, seed, empty_chunk=None):
+    rng = np.random.default_rng(seed)
+    total = n_chunks * chunk
+    slots = np.arange(total)
+    if empty_chunk is not None:
+        slots = slots[slots // chunk != empty_chunk]
+    flat = rng.choice(slots, size=n, replace=False).astype(np.int32)
+    order = np.argsort(flat).astype(np.int32)
+    bounds = np.searchsorted(flat[order], np.arange(0, total + 1, chunk)).astype(np.int32)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    x[:3] = [-0.0, np.inf, np.nan]  # words are moved, not computed
+    t = [torch.from_numpy(a).to(device) for a in (x, y, order, flat, bounds)]
+    return (*t, total, chunk)
+
+
+@pytest.mark.parametrize("n,chunk,n_chunks,empty", [
+    (100_000, 128 * 1024, 8, None),  # the probe's chunk
+    (1237, 8200, 5, 2),  # an odd count, a ragged block, an empty chunk
+    (5, 8, 3, None),  # chunks smaller than a block
+])
+def test_k4_matches_plain_on_card(cuda, n, chunk, n_chunks, empty):
+    from multithreadedgameengine_tpu_torch.ops.cuda_kernels import expand, expand_plain
+
+    args = k4_args(cuda, n, chunk, n_chunks, 3, empty)
+    before = cuda_kernels.expand.launches
+    kx, ky = expand(*args)
+    assert cuda_kernels.expand.launches == before + 1
+    px, py = expand_plain(*args)
+    torch.cuda.synchronize()
+    assert kx.shape == (n_chunks * 8, chunk // 8)
+    assert torch.equal(kx.view(torch.int32), px.view(torch.int32))
+    assert torch.equal(ky.view(torch.int32), py.view(torch.int32))
+
+
+def test_k4_raises_without_its_library(cuda, monkeypatch):
+    """On a CUDA tensor ``expand`` launches the kernel or raises: with the
+    library unavailable it does not fall back to the plain version."""
+    from multithreadedgameengine_tpu_torch.ops import _build
+    from multithreadedgameengine_tpu_torch.ops.cuda_kernels import expand
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    before = cuda_kernels.expand.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        expand(*k4_args(cuda, 100, 1024, 2, 0))
+    assert cuda_kernels.expand.launches == before
+
+
+def boids_scene(device, n=400, world=(1200.0, 800.0)):
+    from multithreadedgameengine_tpu_torch import Engine, make_config
+    from multithreadedgameengine_tpu_torch.models.boids import Boid
+
+    eng = Engine(make_config(world_width=world[0], world_height=world[1], seed=123456,
+                             spatial=dict(cell_size=50.0, max_neighbors=400, cell_capacity=32),
+                             physics=dict(sub_step_count=1)), device=device)
+    eng.register_entity_class(Boid, n - 1)
+    eng.init()
+    rng = np.random.default_rng(123456)
+    m = n - 1
+    eng.spawn_batch("Boid", m, x=rng.uniform(50, world[0] - 50, m).astype(np.float32),
+                    y=rng.uniform(50, world[1] - 50, m).astype(np.float32),
+                    vx=rng.uniform(-3, 3, m).astype(np.float32),
+                    vy=rng.uniform(-3, 3, m).astype(np.float32), call_on_spawned=False)
+    eng._flush_pending()
+    return eng
+
+
+def test_boids_on_card_match_cpu(cuda):
+    """BASELINE config 3's knobs, 400 boids, 5 frames on the card against
+    the CPU. The ticks' neighbour sums (torch.sum over the slots) run in
+    another order on the card, so positions agree within 8 ulps at the
+    world's extent; integer state is exact, and the neighbour lists of one
+    world are the same on both."""
+    from multithreadedgameengine_tpu_torch.ops.spatial import neighbor_lists
+
+    snaps = []
+    for device in (cuda, "cpu"):
+        eng = boids_scene(device)
+        eng.step(5)
+        assert int(eng.metrics["n_binned"]) == 400
+        snaps.append(eng.snapshot())
+    a, b = snaps
+    assert torch.equal(a.rigid_body.collision_count, b.rigid_body.collision_count)
+    assert torch.equal(a.transform.active, b.transform.active)
+    tol = 8 * float(np.spacing(np.float32(1200.0)))
+    assert (a.transform.x - b.transform.x).abs().max().item() <= tol
+    assert (a.transform.y - b.transform.y).abs().max().item() <= tol
+    lists = []
+    for device in (cuda, "cpu"):
+        w = b.map_tensors(lambda v: v.to(device))
+        t = w.transform
+        lists.append(neighbor_lists(t.x, t.y, t.active, w.collider.visual_range, eng.config,
+                                    (w.rigid_body.vx, w.rigid_body.vy, t.entity_type)))
+    for name in ("ids", "count", "d2"):
+        assert torch.equal(getattr(lists[0], name).cpu(), getattr(lists[1], name)), name
+    assert int(lists[1].count.sum()) > 0
+
+
+def test_halo_boids_on_card_bit_equal_with_engine_step(cuda):
+    """The halo step with its neighbour-reading phase A on 4 slabs of the
+    card against ``Engine.step`` on the card, 5 frames, every leaf."""
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, unplace_fn
+    from multithreadedgameengine_tpu_torch.parallel.halo import _get_comp, entity_leaf_specs
+
+    eh, es = boids_scene(cuda, 4096, (2400.0, 1200.0)), boids_scene(cuda, 4096, (2400.0, 1200.0))
+    step, place = make_halo_step(eh, make_mesh(4, cuda), oversub=1.5)
+    chunks = place(eh.world)
+    for _ in range(5):
+        chunks, m = step(chunks, eh.input.snapshot(cuda))
+    es.step(5)
+    a, b = unplace_fn(chunks), es.world
+    for cname, fname, _dt in entity_leaf_specs(a):
+        assert torch.equal(getattr(_get_comp(a, cname), fname),
+                           getattr(_get_comp(b, cname), fname)), f"{cname}.{fname}"
+    assert int(m["route_overflow_logic"]) == 0 and int(m["route_overflow_solver"]) == 0
+    assert int(m["n_binned"]) == 4096

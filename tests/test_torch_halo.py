@@ -1,5 +1,6 @@
-"""Slice E1: the spatial-domain halo step and K3, the PyTorch port against
-the JAX package and against itself.
+"""Slices E1 and C1: the spatial-domain halo step and K3, the PyTorch port
+against the JAX package and against itself, and the step's
+neighbour-reading phase A (the boids scene of ``tests/test_halo.py``).
 
 The JAX side runs as ``tests/test_halo.py`` runs it: conftest's 8 virtual
 CPU devices, ``make_mesh(D, axis_name="slab")``, and the Pallas kernel K3
@@ -19,8 +20,9 @@ Tolerances, each with its reason:
   the last-bit differences from frame to frame (measured: 1 ulp at the
   world's height per frame, 1.8e-4 after 3 frames).
 - The port's halo step against the port's own single-device ``Engine``:
-  bit-equal. Binning, rank order, arithmetic and summation order are the
-  same on both paths (the reference's own bar for its halo step).
+  bit-equal, with and without phase A. Binning, rank order, candidate
+  order, arithmetic and summation order are the same on both paths (the
+  reference's own bar for its halo step).
 """
 
 import dataclasses
@@ -458,3 +460,121 @@ def test_no_radius_raises():
     eng._max_radius = 0.0
     with pytest.raises(ValueError, match="geometry"):
         make_halo_step(eng, make_mesh(2, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# slice C1: the neighbour-reading phase A (tests/test_halo.py::TestBoidsParity)
+# ---------------------------------------------------------------------------
+
+def boids_engine(cls=None, n_total=256, y_range=(50, 1550), seed=3, **physics):
+    """test_halo.py's 256-boid scene (``_boids_engine``)."""
+    from multithreadedgameengine_tpu_torch.models.boids import Boid
+
+    eng = Engine(make_config(world_width=2000.0, world_height=1600.0, seed=7,
+                             spatial=dict(cell_size=100.0, max_neighbors=64, cell_capacity=32),
+                             physics={"sub_step_count": 2, "gravity": (0.0, 0.0), **physics}),
+                 device="cpu")
+    cls = cls or Boid
+    eng.register_entity_class(cls, n_total - 1)
+    eng.init()
+    rng = np.random.default_rng(seed)
+    m = n_total - 1
+    eng.spawn_batch(cls.__name__, m, x=rng.uniform(50, 1950, m).astype(np.float32),
+                    y=rng.uniform(*y_range, m).astype(np.float32),
+                    vx=rng.uniform(-3, 3, m).astype(np.float32),
+                    vy=rng.uniform(-3, 3, m).astype(np.float32))
+    eng._flush_pending()
+    return eng
+
+
+def assert_all_leaves_equal(a, b):
+    from multithreadedgameengine_tpu_torch.parallel.halo import _get_comp
+
+    specs = entity_leaf_specs(a)
+    assert specs == entity_leaf_specs(b)
+    for cname, fname, _dt in specs:
+        assert torch.equal(getattr(_get_comp(a, cname), fname),
+                           getattr(_get_comp(b, cname), fname)), f"{cname}.{fname}"
+
+
+@pytest.mark.parametrize("n_slabs", [4, 8])
+def test_halo_boids_bit_equal_with_single_device_engine(n_slabs):
+    """Flocking ticks (neighbour tables built per slab with hw halo rows)
+    and the grid solver: the halo trajectory is the single-device one, bit
+    for bit, every leaf of every component (the user component included),
+    with no routing overflow."""
+    eh, es = boids_engine(), boids_engine()
+    step, place = make_halo_step(eh, make_mesh(n_slabs, "cpu"), oversub=4.0)
+    assert step.plan.need_neighbors and step.plan.hw == 1
+    chunks = place(eh.world)
+    ins = eh.input.snapshot("cpu")
+    for _ in range(4):
+        chunks, metrics = step(chunks, ins)
+    es.step(4)
+    a = unplace_fn(chunks)
+    assert set(a.custom) == {"flocking"}
+    assert_all_leaves_equal(a, es.snapshot())
+    assert int(metrics["route_overflow_logic"]) == 0
+    assert int(metrics["route_overflow_solver"]) == 0
+    assert int(metrics["active_count"]) == int(metrics["n_binned"]) == 256
+
+
+class Herder(EntityClass):
+    """Reads a neighbour field it does not declare: ``ctx.neighbor_col``
+    falls back to ``ctx.gather``, which the halo step resolves against the
+    home chunks in global-id order."""
+
+    components = [RigidBody, Collider, SpriteRenderer]
+
+    @classmethod
+    def setup(cls, ctx):
+        return {"collider.radius": 10.0, "collider.visual_range": 100.0,
+                "rigid_body.max_vel": 10.0}
+
+    @staticmethod
+    def tick(ctx):
+        live = ctx.neighbor_mask
+        vx = torch.where(live, ctx.neighbor_col("rigid_body.vx"), 0.0).sum(1)
+        vy = torch.where(live, ctx.gather("rigid_body.vy"), 0.0).sum(1)
+        n = torch.clamp(ctx.neighbor_count, min=1).to(torch.float32)
+        return {"rigid_body.ax": 0.05 * vx / n, "rigid_body.ay": 0.05 * vy / n}
+
+
+def test_halo_gather_of_undeclared_fields_bit_equal():
+    eh, es = boids_engine(Herder), boids_engine(Herder)
+    step, place = make_halo_step(eh, make_mesh(4, "cpu"), oversub=4.0)
+    assert step.plan.payload_channels == {"transform.x": 1, "transform.y": 2}
+    chunks = place(eh.world)
+    for _ in range(3):
+        chunks, _m = step(chunks, eh.input.snapshot("cpu"))
+    es.step(3)
+    assert_all_leaves_equal(unplace_fn(chunks), es.snapshot())
+    assert float(es.world.rigid_body.vx.abs().sum()) > 0
+
+
+def test_halo_boids_logic_route_overflow_degrades():
+    """Every boid in the bottom slab with a starved route capacity (oversub
+    0.5, test_halo.py::TestRouteOverflowDegrades): phase A's overflow is
+    counted, the rows left home keep their state for the frame, positions
+    stay finite."""
+    eng = boids_engine(y_range=(1450, 1550), seed=4, sub_step_count=1)
+    step, place = make_halo_step(eng, make_mesh(4, "cpu"), oversub=0.5)
+    chunks = place(eng.world)
+    for _ in range(2):
+        chunks, metrics = step(chunks, eng.input.snapshot("cpu"))
+    assert int(metrics["route_overflow_logic"]) > 0
+    w = unplace_fn(chunks)
+    assert bool((w.transform.x.isfinite() & w.transform.y.isfinite()).all())
+
+
+def test_custom_leaves_travel_exactly():
+    eng = boids_engine()
+    w = eng.world
+    fl = w.custom["flocking"]
+    w = w.replace(custom={"flocking": fl.replace(margin=torch.linspace(-1.0, 1.0, 256))})
+    specs = entity_leaf_specs(w)
+    assert [s[0] for s in specs][-6:] == ["custom:flocking"] * 6
+    assert specs[-6][1] == "protected_range"
+    back = unpack_world_rows(pack_world_rows(w, specs), eng.world, specs)
+    assert torch.equal(back.custom["flocking"].margin, w.custom["flocking"].margin)
+    assert torch.equal(back.shadow.shadow_radius, w.shadow.shadow_radius)

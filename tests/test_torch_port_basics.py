@@ -178,16 +178,23 @@ def test_unported_runtime_updates_and_apis_are_refused():
 
 
 def test_neighbour_reading_tick_is_refused():
+    """Since slice C1 a tick that reads neighbours registers and runs; what
+    is still refused is the scene it needs the neighbour-list solver for
+    (no collider radius: ROADMAP slice C, item 12)."""
+
     class Reader(EntityClass):
         components = [RigidBody]
 
         @staticmethod
         def tick(ctx):
-            return {}
+            return {"rigid_body.ax": ctx.neighbor_count.to(torch.float32)}
 
     eng = Engine(balls_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        eng.register_entity_class(Reader, 4)
+    eng.register_entity_class(Reader, 4)
+    eng.init()
+    eng.spawn("Reader", x=10.0, y=10.0)
+    with pytest.raises(NotImplementedError, match="slice C, item 12"):
+        eng.step(1)
 
 
 def test_device_is_required():

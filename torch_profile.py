@@ -5,14 +5,19 @@
 
 For each cell -- the demo scene (10,000 balls, ``bench.py``'s scene), the
 JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs)
-through ``Engine.step``, and the halo rung (``chip_smoke.py`` phase 6: the
-1M balls scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one card)
-through ``parallel.make_halo_step`` -- it warms up, then:
+and BASELINE config 3 (``boids_15k``, ``chip_smoke.py`` phase 7: 15,000
+boids, ``run_ladder.py:166-188``) through ``Engine.step``, and the halo
+rungs (``chip_smoke.py`` phases 6 and 8: the 1M balls scene and the
+102,400-boid scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one
+card) through ``parallel.make_halo_step`` -- it warms up, then:
 
 - times three chunks of ``--frames`` frames with the host clock, each
   ending in ``torch.cuda.synchronize`` (profiler off);
 - profiles one more chunk with ``torch.profiler`` (CPU and CUDA activities)
-  and sums device time by kernel name.
+  and sums device time by kernel name;
+- for boids_15k, profiles ``--frames`` builds of the frame's neighbour
+  lists alone (``ops.spatial.neighbor_lists`` on the cell's last world),
+  and reports their device time a build and its share of a frame's.
 
 It prints, per cell, wall ms/step (median of the three chunks, profiler
 off), device ms/step and the device's busy share over the profiled chunk,
@@ -32,11 +37,20 @@ import time
 from pathlib import Path
 
 from chip_smoke import (
+    BOIDS_N,
+    BOIDS_WORLD,
+    CONFIG3_SPATIAL,
+    HALO_BOIDS_N,
+    HALO_BOIDS_OVERSUB,
+    HALO_BOIDS_SPATIAL,
+    HALO_BOIDS_WORLD,
     HALO_N,
     HALO_SLABS,
     HALO_WORLD,
     LADDER_PHYSICS,
+    boids_engine,
     card_name_and_limit,
+    neighbor_lists_of,
 )
 
 CELLS = {
@@ -45,14 +59,20 @@ CELLS = {
                             world_height=40_000.0, physics=LADDER_PHYSICS),
     "halo_1m_d4": dict(n_balls=HALO_N - 1, seed=123456, world_width=HALO_WORLD[0],
                        world_height=HALO_WORLD[1]),
+    "boids_15k": dict(boids=BOIDS_N),
+    "halo_boids_102k_d4": dict(boids=HALO_BOIDS_N - 1),
 }
 
 
 def engine_runner(kw: dict):
-    """``run(frames)`` through ``Engine.step``, and what its plan picked."""
+    """``run(frames)`` through ``Engine.step``, what its plan picked, and
+    the neighbour build alone (None for a scene that builds no lists)."""
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
 
-    eng = make_balls_engine(device="cuda", **kw)
+    if "boids" in kw:
+        eng = boids_engine("cuda", kw["boids"], BOIDS_WORLD, CONFIG3_SPATIAL)
+    else:
+        eng = make_balls_engine(device="cuda", **kw)
 
     def run(frames):
         eng.step(frames)
@@ -62,7 +82,10 @@ def engine_runner(kw: dict):
         return {"kernel": "K2" if eng._plan.symmetric else "K1",
                 "residency": eng._plan.residency, "lazy_frames": eng.lazy_frames}
 
-    return run, info
+    def lists():
+        neighbor_lists_of(eng.world, eng.config)
+
+    return run, info, (lists if "boids" in kw else None)
 
 
 def halo_runner(kw: dict):
@@ -72,9 +95,14 @@ def halo_runner(kw: dict):
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
 
-    eng = make_balls_engine(device="cuda", **kw)
+    if "boids" in kw:
+        eng = boids_engine("cuda", kw["boids"], HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL)
+        oversub = HALO_BOIDS_OVERSUB
+    else:
+        eng = make_balls_engine(device="cuda", **kw)
+        oversub = 4.0
     eng._flush_pending()
-    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, "cuda"), oversub=4.0)
+    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, "cuda"), oversub=oversub)
     state = {"chunks": place(eng.world)}
     ins = eng.input.snapshot("cuda")
 
@@ -83,14 +111,24 @@ def halo_runner(kw: dict):
             state["chunks"], _m = step(state["chunks"], ins)
         torch.cuda.synchronize()
 
-    return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}
+    return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}, None
+
+
+def device_us(prof):
+    """[(device us, calls, kernel name)] of a profile, and their sum."""
+    import torch
+
+    by_kernel = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                 if ev.self_device_time_total > 0
+                 and ev.device_type == torch.autograd.DeviceType.CUDA]
+    return by_kernel, sum(k[0] for k in by_kernel)
 
 
 def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run, info = (halo_runner if name.startswith("halo") else engine_runner)(kw)
+    run, info, lists = (halo_runner if name.startswith("halo") else engine_runner)(kw)
     run(frames)  # warm-up: the first rebin, the kernel build
     walls = []
     for _ in range(3):
@@ -102,17 +140,9 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
         t0 = time.perf_counter()
         run(frames)
         wall_on = time.perf_counter() - t0
-    events = prof.key_averages()
-    by_kernel = []
-    device_us = 0.0
-    n_ops = 0
-    for ev in events:
-        us = ev.self_device_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel.append((us, ev.count, ev.key))
-            device_us += us
-            n_ops += ev.count
-    if device_us <= 0:
+    by_kernel, total_us = device_us(prof)
+    n_ops = sum(k[1] for k in by_kernel)
+    if total_us <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
     by_kernel.sort(reverse=True)
     picked = info()
@@ -122,18 +152,28 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
         "wall_ms_per_step": statistics.median(walls) * 1e3,
         "wall_ms_per_step_all": [w * 1e3 for w in walls],
         "wall_ms_per_step_profiled": wall_on / frames * 1e3,
-        "device_ms_per_step": device_us / frames / 1e3,
-        "busy_share": device_us / 1e6 / wall_on,
+        "device_ms_per_step": total_us / frames / 1e3,
+        "busy_share": total_us / 1e6 / wall_on,
         "device_ops_per_step": n_ops / frames,
         "kernel": picked["kernel"],
         "residency": picked["residency"],
         "lazy_frames_in_profiled_chunk": picked["lazy_frames"] - lazy0,
         "top": [
             {"name": k[:90], "ms_per_step": us / frames / 1e3, "calls_per_step": c / frames,
-             "share": us / device_us}
+             "share": us / total_us}
             for us, c, k in by_kernel[:top]
         ],
     }
+    if lists is not None:
+        lists()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(frames):
+                lists()
+            torch.cuda.synchronize()
+        _k, lists_us = device_us(prof)
+        out["neighbor_lists_device_ms"] = lists_us / frames / 1e3
+        out["neighbor_lists_share"] = lists_us / total_us
     return out
 
 
@@ -160,7 +200,10 @@ def main() -> int:
               f"profiled {r['wall_ms_per_step_profiled']:.4f}) "
               f"device_ms_per_step={r['device_ms_per_step']:.4f} "
               f"busy_share={r['busy_share']:.3f} "
-              f"device_ops_per_step={r['device_ops_per_step']:.1f}", flush=True)
+              f"device_ops_per_step={r['device_ops_per_step']:.1f}"
+              + (f" neighbor_lists_device_ms={r['neighbor_lists_device_ms']:.4f} "
+                 f"neighbor_lists_share={r['neighbor_lists_share']:.3f}"
+                 if "neighbor_lists_share" in r else ""), flush=True)
         for t in r["top"]:
             print(f"    {t['ms_per_step']:9.4f} ms/step {t['share'] * 100:5.1f}% "
                   f"x{t['calls_per_step']:.1f}  {t['name']}", flush=True)
