@@ -67,7 +67,20 @@ Phases, each printing one line or more before the last:
    131,072 slots): one placement through the wrapper as the probe makes
    it, then against its plain version bit for bit there and on a small
    odd-sized case, timed beside the probe's yardstick (zeros and
-   ``index_copy_``, ``[k4]``).
+   ``index_copy_``, ``[k4]``);
+10. slice C2's main path, BASELINE config 4 (``models/predators.py``'s
+   ``make_predators_engine`` at the demo's operating point: 15,000 prey, 8
+   predators, 5 lights and the mouse in 5000 x 2000, the 50,000-particle
+   pool with decals, lighting with shadows), the camera zoomed out over
+   the whole world, 5 + 20 frames through ``Engine.step``
+   (``[predators_15k]``: steps/s, launch counts, ``n_binned``, overflow,
+   the shadow sprites); then one ``emitter.emit_batch`` of the demo's
+   blood and 100 more frames (``[predators_blood]``: the live particles
+   falling as they land, the canvas and dirty tiles changed); the 64-stamp
+   decal loop alone on that run's stamp batch (``[stamp_decals]``); K1
+   against its plain version on the scene's layout and timed there; then
+   400 prey on the card against the same scene on the CPU for 6 frames with
+   a landing burst (``[predators_reference]``).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -115,6 +128,12 @@ HALO_BOIDS_OVERSUB = 1.5
 # 1M ladder layout rounded up to whole chunks (66)
 K4_N, K4_CHUNK = 1_000_000, 128 * 1024
 K4_TOTAL = (12 * 556 * 1280 // K4_CHUNK + 1) * K4_CHUNK
+# slice C2: BASELINE config 4 at the demo's operating point, the camera
+# zoomed out over the whole world (camera x, y and zoom)
+PRED_WARMUP, PRED_FRAMES, PRED_BLOOD_FRAMES = 5, 20, 100
+PRED_CAMERA = (0.0, 0.0, 0.3)
+PRED_REF = dict(n_prey=400, n_predators=8, n_lights=5, world_width=1600.0, world_height=1000.0)
+PRED_REF_FRAMES = 6
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -774,6 +793,219 @@ def boids_phase(dev, errs):
     return k1, timing
 
 
+def predators_engine(dev, **kw):
+    """``make_predators_engine`` on ``dev`` with the camera zoomed out so
+    every light and caster is on screen."""
+    from multithreadedgameengine_tpu_torch.models.predators import make_predators_engine
+
+    eng = make_predators_engine(device=dev, **kw)
+    eng.input.camera_x, eng.input.camera_y, eng.input.camera_zoom = PRED_CAMERA
+    return eng
+
+
+def blood_burst(eng, k=16):
+    """One ``emit_batch`` of the demo's blood at the first ``k`` prey, as
+    ``Predator.on_collision_stay_batch`` emits it. Returns the count."""
+    from multithreadedgameengine_tpu_torch.models.predators import BLOOD
+
+    s = eng.classes["Prey"].start_index
+    t = eng.world.transform
+    return eng.emitter.emit_batch(x=t.x[s:s + k].cpu().numpy(), y=t.y[s:s + k].cpu().numpy(),
+                                  **BLOOD)
+
+
+def landing_burst(eng):
+    """A burst that lands on its first frame on overlapping patches, so the
+    decal stamping runs (``tests/test_torch_predators.py``'s)."""
+    return eng.emitter.emit_batch(
+        x=[300.0, 310.0, 900.0], y=[300.0, 305.0, 500.0], count={"min": 6, "max": 12},
+        z=-1.0, vz=5.0, angle_xy={"min": 0.0, "max": 360.0}, speed={"min": 0.5, "max": 3.0},
+        lifespan=9000.0, gravity=0.0, texture="blood", scale={"min": 0.5, "max": 2.0},
+        alpha={"min": 0.4, "max": 0.9}, tint={"min": 0xAA0000, "max": 0xFF4444},
+        stay_on_the_floor=True)
+
+
+def stamp_loop_ms(eng, reps=20):
+    """ms of one ``stamp_decals`` call (the 64 sequential stamps) on the
+    stamp batch this moment's pool gives, eager between two CUDA events:
+    the work does not depend on how many stamps are valid."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.ops.decals import stamp_decals
+    from multithreadedgameengine_tpu_torch.ops.particles import update_particles
+
+    w, cfg = eng.world, eng.config
+    _pool, stamps, _n = update_particles(w.particles, cfg, cfg.dt_ratio, True)
+    tex = eng._plan.decal_textures
+
+    def run():
+        for _ in range(reps):
+            stamp_decals(w.decal_canvas, w.decal_dirty, stamps, tex, cfg)
+
+    run()
+    torch.cuda.synchronize()
+    return statistics.median([events_ms(run, reps) for _ in range(3)]), int(stamps.valid.sum())
+
+
+def predators_phase(dev, errs):
+    """Slice C2's main path (BASELINE config 4), the blood burst, the stamp
+    loop alone, K1 against its plain version on the scene's layout, and 400
+    prey on the card against the CPU. Returns K1's launches on the main path
+    and its times on the predators layout."""
+    from multithreadedgameengine_tpu_torch.ops.spatial import CELLMAJOR_BUDGET_BYTES
+
+    ck = kernels()
+    t0 = time.perf_counter()
+    eng = predators_engine(dev)
+    eng._flush_pending()
+    build_s = time.perf_counter() - t0
+    zero_counts()
+    eng.step(PRED_WARMUP, block=True)
+    t0 = time.perf_counter()
+    eng.step(PRED_FRAMES)
+    eng.sync()
+    dt = time.perf_counter() - t0
+    k1, k2, k3 = read_counts()
+    k4 = ck.expand.launches
+    frames = PRED_WARMUP + PRED_FRAMES
+    w, m, cfg, plan = eng.world, eng.metrics, eng.config, eng._plan
+    subs = cfg.physics.sub_step_count
+    sp, lc = cfg.spatial, cfg.lighting
+    n_lights = eng.classes["TallLight"].count
+    slots = (2 * sp.max_cell_radius + 1) ** 2 * sp.cell_capacity
+    channels = 3 + len(plan.extra_paths)
+    cellmajor = (cfg.total_cells + 1) * slots * channels * 4 <= CELLMAJOR_BUDGET_BYTES
+    ok = finite(w)
+    n_binned, active = int(m["n_binned"].item()), int(m["active_count"].item())
+    overflow = int(m["solver_overflow"].item())
+    shadows = int(w.shadow_sprites.active.sum().item())
+    log("predators_15k", card=repr(card_name_and_limit()), entities=w.n_entities,
+        frames=frames, steps_per_s=PRED_FRAMES / dt, build_s=build_s, k1_launches=k1,
+        expected_k1=frames * subs, k2_launches=k2, k3_launches=k3, k4_launches=k4,
+        n_binned=n_binned, active_count=active, solver_overflow=overflow,
+        shadow_sprites=shadows, shadow_cap=n_lights * lc.max_shadows_per_light,
+        scan_radius=sp.max_cell_radius, slots=slots, payload_channels=channels,
+        assembly="cell-major" if cellmajor else "per-entity gather",
+        rows_mb=w.n_entities * slots * channels * 4 / 1e6, symmetric=plan.symmetric,
+        layout=list(layout_args(eng)[0].shape), solver_geom=plan.solver_geom,
+        active_particles=int(m["active_particles"].item()),
+        mean_contacts=w.rigid_body.collision_count[1:].float().mean().item(), finite=ok)
+    check(ok and int(m["nonfinite_count"].item()) == 0, "predators_15k: non-finite positions")
+    check(w.step_count == frames, "predators_15k: step_count")
+    check(k1 == frames * subs and k2 == 0 and k3 == 0 and k4 == 0,
+          f"predators_15k: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches; expected {frames}, 0, 0, 0")
+    check(overflow == 0, f"predators_15k: solver_overflow {overflow}")
+    check(n_binned == active, f"predators_15k: n_binned {n_binned} of {active} active")
+    check(0 < shadows <= n_lights * lc.max_shadows_per_light,
+          f"predators_15k: {shadows} shadow sprites")
+
+    # the blood burst: live particles fall as they land, the canvas and
+    # the dirty tiles change
+    canvas0 = w.decal_canvas.clone()
+    queued = blood_burst(eng)
+    zero_counts()
+    live = []
+    for i in range(PRED_BLOOD_FRAMES):
+        bm = eng.step(1)
+        if i % 10 == 0 or i == PRED_BLOOD_FRAMES - 1:
+            live.append(int(bm["active_particles"].item()))
+    k1_blood = read_counts()[0]
+    w = eng.world
+    changed = int((w.decal_canvas != canvas0).any(-1).sum().item())
+    tiles = int(w.decal_dirty.sum().item())
+    log("predators_blood", queued=queued, frames=PRED_BLOOD_FRAMES,
+        active_particles_every_10=",".join(map(str, live)), canvas_px_changed=changed,
+        dirty_tiles=tiles, k1_launches=k1_blood)
+    check(live[0] > 0 and live[-1] < live[0] and all(b <= a for a, b in zip(live, live[1:])),
+          f"predators_blood: live particles {live} do not fall")
+    check(changed > 0 and tiles > 0, "predators_blood: no stamp reached the canvas")
+    check(k1_blood == PRED_BLOOD_FRAMES * subs, f"predators_blood: K1 {k1_blood} launches")
+    stamp_ms, valid = stamp_loop_ms(eng)
+    frame_ms = dt / PRED_FRAMES * 1e3
+    log("stamp_decals", stamps=64, valid=valid, ms=stamp_ms, frame_wall_ms=frame_ms,
+        share_of_frame_wall=stamp_ms / frame_ms)
+
+    args = layout_args(eng)
+    err, (_x, _y, kc) = kernel_vs_plain(ck.pair_pass_resident, ck.pair_pass_resident_plain,
+                                        "predators_15k", args, 5000.0)
+    errs["K1"].append(err)
+    k1_ms, k1_plain_ms = time_kernel(ck.pair_pass_resident, ck.pair_pass_resident_plain, args)
+    b = bound(args, int(kc.sum().item()), False)
+    log("timing", layout="predators_15k", shape=list(args[0].shape), k1_ms=k1_ms,
+        k1_plain_ms=k1_plain_ms, bound_ms=b[0], bound_by=b[1])
+    timing = dict(shape_predators=list(args[0].shape), ms_predators=k1_ms,
+                  plain_ms_predators=k1_plain_ms, bound_ms_predators=b[0],
+                  stamp_decals_ms=stamp_ms)
+    del eng, w, args, canvas0
+
+    predators_reference(dev)
+    return k1, timing
+
+
+#: the predators scene on the card against the CPU: positions (and the
+#: active shadow sprites' floats, at each field's largest magnitude) within
+#: this many float32 ulps. The ticks' sums over the neighbour slots run in
+#: another order on the card, as in ``[boids_reference]``; atan2 is not
+#: correctly rounded on either. Integer state exact; canvas bytes within 1.
+PRED_REF_ULPS = 8
+
+
+def predators_reference(dev):
+    """400 prey, 8 predators and 5 lights in 1600 x 1000 on the card and on
+    the CPU, with the blood and a landing burst, for 6 frames."""
+    import numpy as np
+
+    snaps = {}
+    for d in (dev, "cpu"):
+        e = predators_engine(d, **PRED_REF)
+        e.step(1)
+        blood_burst(e)
+        landing_burst(e)
+        e.step(PRED_REF_FRAMES - 1)
+        snaps[str(d)] = e.snapshot()
+    a, b = snaps[str(dev)], snaps["cpu"]
+    exact = {
+        "active": (a.transform.active, b.transform.active),
+        "contacts": (a.rigid_body.collision_count, b.rigid_body.collision_count),
+        "animation_state": (a.sprite.animation_state, b.sprite.animation_state),
+        "animation_frame": (a.sprite.animation_frame, b.sprite.animation_frame),
+        "render_dirty": (a.sprite.render_dirty, b.sprite.render_dirty),
+        "particles_active": (a.particles.active, b.particles.active),
+        "decal_dirty": (a.decal_dirty, b.decal_dirty),
+        "shadow_active": (a.shadow_sprites.active, b.shadow_sprites.active),
+    }
+    bad = {k: int((u != v).sum().item()) for k, (u, v) in exact.items()}
+    pos_tol = PRED_REF_ULPS * float(np.spacing(np.float32(1600.0)))
+    pos_err = max((a.transform.x - b.transform.x).abs().max().item(),
+                  (a.transform.y - b.transform.y).abs().max().item())
+    p_err = max((getattr(a.particles, f) - getattr(b.particles, f)).abs().max().item()
+                for f in ("x", "y", "z"))
+    canvas = (a.decal_canvas.int() - b.decal_canvas.int()).abs()
+    on = b.shadow_sprites.active
+    sh_ulps = {}
+    for f in ("x", "y", "rotation", "scale_x", "scale_y", "alpha"):
+        u, v = getattr(a.shadow_sprites, f)[on], getattr(b.shadow_sprites, f)[on]
+        scale = max(v.abs().max().item(), 1e-30) if v.numel() else 1.0
+        sh_ulps[f] = ((u - v).abs().max().item() / float(np.spacing(np.float32(scale)))
+                      if v.numel() else 0.0)
+    log("predators_reference", prey=PRED_REF["n_prey"], frames=PRED_REF_FRAMES,
+        mismatches=json.dumps(bad).replace(" ", ""), max_abs_err_vs_cpu=pos_err, tol=pos_tol,
+        particle_max_abs_err=p_err, canvas_max_byte_diff=int(canvas.max().item()),
+        canvas_bytes_differing=int((canvas > 0).sum().item()),
+        stamped_px=int((b.decal_canvas[..., 3] > 0).sum().item()), shadows=int(on.sum().item()),
+        shadow_ulps=json.dumps(sh_ulps).replace(" ", ""),
+        live_particles=int(b.particles.active.sum().item()),
+        contacts=int(b.rigid_body.collision_count.sum().item()))
+    check(not any(bad.values()), f"predators_reference: integer state differs: {bad}")
+    check(pos_err <= pos_tol and p_err <= pos_tol,
+          f"predators_reference: positions differ by {pos_err}, particles by {p_err}")
+    check(int(canvas.max().item()) <= 1, "predators_reference: canvas bytes differ by more than 1")
+    check(all(v <= PRED_REF_ULPS for v in sh_ulps.values()),
+          f"predators_reference: shadow sprites differ: {sh_ulps}")
+    check(bool((b.decal_canvas[..., 3] > 0).any()) and int(on.sum().item()) > 0,
+          "predators_reference: nothing stamped or no shadow cast")
+
+
 def halo_boids_phase(dev, errs):
     """The halo benchmark's boids scene on 4 slabs against Engine.step,
     then K3 against its plain version on one slab grid of that run, timed
@@ -1141,6 +1373,9 @@ def main() -> int:
     k4 = k4_phase(dev)
     errs["K4"] = k4["errs"]
 
+    # 10. slice C2's main path: BASELINE config 4, then the card against the CPU
+    k1_pred, k1_pred_timing = predators_phase(dev, errs)
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -1155,7 +1390,7 @@ def main() -> int:
               {"shape": demo_shape, "eager_ms": k1_eager_10k, "shape_1m": big_shape,
                "ms_1m": k1_ms_1m, "plain_ms_1m": k1_plain_1m,
                "bound_ms_1m": bound_1m["K1"][0], "launches_boids_15k": k1_boids,
-               **k1_boids_timing}),
+               **k1_boids_timing, "launches_predators_15k": k1_pred, **k1_pred_timing}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],

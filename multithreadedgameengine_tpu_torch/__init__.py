@@ -3,8 +3,9 @@
 
 The JAX package stays the reference; this package mirrors its module names
 and runs the balls scene, the boids scene (neighbour lists, user
-components) and the spatial-domain halo step in PyTorch on the card unless
-the caller asks for the CPU. On ``device="cuda"``, the entry points'
+components), the predators scene (particles, decals, lighting and shadows,
+sprite sheets) and the spatial-domain halo step in PyTorch on the card
+unless the caller asks for the CPU. On ``device="cuda"``, the entry points'
 default, the pair passes run as hand-written CUDA kernels
 (``ops/cuda_kernels.py``, built from ``csrc/`` at first use); on
 ``device="cpu"`` every kernel runs its plain PyTorch version. This package

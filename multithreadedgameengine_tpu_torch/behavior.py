@@ -20,8 +20,12 @@ For position residency the module also ports the layout-evaluated ticks
 :func:`eval_layout_forces`, which runs a layout-safe tick once over the
 flattened solver layout instead of ``vmap``-ing it over slots.
 
-Not ported yet, and refused with ``NotImplementedError``: the ``"emit"``
-tick key (particles, ROADMAP slice C item 14).
+A tick's ``"emit"`` key asks for particles (behavior.py:525-586): a dict of
+:data:`EMIT_FIELDS` plus ``"count"``, each a scalar (every particle), a
+``[count]`` tensor (per entity) or a ``[count, emit_cap]`` / ``[1,
+emit_cap]`` tensor (per particle; the reference's per-entity ``[emit_cap]``
+row). The logic phase returns the requests of each class as one block for
+``ops.particles.apply_tick_emissions``.
 """
 
 from __future__ import annotations
@@ -137,6 +141,10 @@ class EntityClass:
     #: a slice instead of a gather (behavior.py:139-145)
     neighbor_fields: Sequence[str] = ()
 
+    #: the most particles one entity's tick may emit a frame through the
+    #: ``"emit"`` key (behavior.py:147-151)
+    emit_cap: int = 1
+
     # populated by the engine at registration
     entity_type: int = -1
     start_index: int = 0
@@ -182,19 +190,18 @@ class EntityClass:
         return seen
 
 
-# The host contexts carry ``sprites=None``: the port has no sprite registry
-# (rendering is ROADMAP slice D), which is what the reference's contexts
-# amount to when no texture is registered.
+# The host contexts carry the engine's ``SpriteRegistry`` (``assets``) as
+# ``sprites``, as the reference's do (behavior.py:213-247).
 
 class SetupCtx:
     """Host context for EntityClass.setup."""
 
-    def __init__(self, config: EngineConfig, start: int, count: int, rng):
+    def __init__(self, config: EngineConfig, start: int, count: int, rng, sprites=None):
         self.config = config
         self.start = start
         self.count = count
         self.rng = rng  # shared Mulberry32 stream
-        self.sprites = None
+        self.sprites = sprites
 
     def indices(self) -> np.ndarray:
         return np.arange(self.start, self.start + self.count)
@@ -203,22 +210,22 @@ class SetupCtx:
 class SpawnCtx:
     """Host context for EntityClass.on_spawned."""
 
-    def __init__(self, config: EngineConfig, index: int, rng):
+    def __init__(self, config: EngineConfig, index: int, rng, sprites=None):
         self.config = config
         self.index = index
         self.rng = rng
-        self.sprites = None
+        self.sprites = sprites
 
 
 class BatchSpawnCtx:
     """Host context for EntityClass.on_spawned_batch; ``rng.draw(k)``
     consumes exactly the draws ``len(indices)`` on_spawned calls would."""
 
-    def __init__(self, config: EngineConfig, indices, rng):
+    def __init__(self, config: EngineConfig, indices, rng, sprites=None):
         self.config = config
         self.indices = indices  # np.int32[n], claim order
         self.rng = rng
-        self.sprites = None
+        self.sprites = sprites
 
 
 class TickCtx:
@@ -347,11 +354,56 @@ def _entity_view(world: World, start: int, count: int) -> Dict[str, Any]:
             for name, comp in comps.items()}
 
 
-def _refuse_emit(klass: type) -> None:
-    raise NotImplementedError(
-        f"{klass.__name__}.tick returned 'emit': device particle "
-        "emission is not ported yet (ROADMAP slice C, item 14)"
-    )
+#: emit-request field -> (dtype, default) (behavior.py:525-543). x and y
+#: default to the emitting entity's pre-tick position; the rest are the
+#: host emit()'s defaults (ParticleEmitter.js:29-77).
+EMIT_FIELDS: Dict[str, Tuple[torch.dtype, Any]] = {
+    "x": (torch.float32, None),
+    "y": (torch.float32, None),
+    "z": (torch.float32, 0.0),
+    "vx": (torch.float32, 0.0),
+    "vy": (torch.float32, 0.0),
+    "vz": (torch.float32, 0.0),
+    "lifespan": (torch.float32, 1000.0),
+    "gravity": (torch.float32, 0.15),
+    "scale": (torch.float32, 1.0),
+    "alpha": (torch.float32, 1.0),
+    "tint": (torch.int64, 0xFFFFFF),  # a uint32 held as int64
+    "texture_id": (torch.int32, 0),
+    "fade_on_the_floor": (torch.float32, 0.0),
+    "stay_on_the_floor": (torch.bool, False),
+}
+
+
+def _emit_block(out_emit: Dict[str, Any], klass: type, start: int, count: int,
+                world: World, live: torch.Tensor) -> Dict[str, Any]:
+    """One class's ``"emit"`` output as a dense request block
+    (behavior.py:546-586): every field ``[count, emit_cap]``, and the slot
+    mask ``k < clip(count_i, 0, emit_cap)`` of the live rows ``live``."""
+    unknown = set(out_emit) - set(EMIT_FIELDS) - {"count"}
+    if unknown:
+        raise KeyError(
+            f"{klass.__name__}.tick 'emit' request has unknown fields "
+            f"{sorted(unknown)}; allowed: count, {sorted(EMIT_FIELDS)}"
+        )
+    device = world.device
+    cap = max(1, int(getattr(klass, "emit_cap", 1)))
+    n_req = out_emit.get("count", 1)
+    n_req = torch.clamp(torch.as_tensor(n_req, device=device).to(torch.int32), 0, cap)
+    n_req = torch.broadcast_to(n_req, (count,))
+    slot = torch.arange(cap, dtype=torch.int32, device=device)
+    valid = (slot[None, :] < n_req[:, None]) & live[:, None]
+    fields: Dict[str, torch.Tensor] = {}
+    for key, (dtype, default) in EMIT_FIELDS.items():
+        v = out_emit.get(key)
+        if v is None:
+            v = (read_field(world, f"transform.{key}")[start:start + count]
+                 if default is None else default)
+        v = torch.as_tensor(v, device=device).to(dtype)
+        if v.ndim == 1:  # per entity
+            v = v[:, None]
+        fields[key] = torch.broadcast_to(v, (count, cap))
+    return {"fields": fields, "valid": valid}
 
 
 def run_logic_phase(
@@ -361,15 +413,18 @@ def run_logic_phase(
     cfg: EngineConfig,
     type_ranges: Sequence[Tuple[type, int, int]],
     payload_channels: Optional[Dict[str, int]] = None,
-) -> World:
+) -> Tuple[World, List[Dict[str, Any]]]:
     """Run each class's tick over its slot range, masked by ``active``
     (logic_worker.js:337-369). ``type_ranges``: (EntityClass, start, count).
     ``nbr``: one :class:`NeighborLists` over all rows, sliced per class, or
     the per-class dict of ``neighbor_lists_by_class`` (a class missing from
     it ticks against empty lists). Every tick reads the pre-tick world; the
     writes are applied after all classes ran, as in the reference. A tick's
-    ``"despawn"`` key clears the entity's active flags."""
+    ``"despawn"`` key clears the entity's active flags. Returns (world,
+    emissions): one request block per class whose tick returned ``"emit"``,
+    in registration order."""
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    emissions: List[Dict[str, Any]] = []
     despawn = None
     device = world.device
 
@@ -400,7 +455,8 @@ def run_logic_phase(
 
         for path, value in outs.items():
             if path == "emit":
-                _refuse_emit(klass)
+                emissions.append(_emit_block(value, klass, start, count, world, active_slice))
+                continue
             if path == "despawn":
                 dm = torch.zeros_like(world.transform.active)
                 dm[start:start + count] = torch.as_tensor(value, device=device) & active_slice
@@ -423,7 +479,7 @@ def run_logic_phase(
         world = write_field(world, path, torch.where(mask, vals, read_field(world, path)))
     if despawn is not None:
         world = apply_despawn_mask(world, despawn)
-    return world
+    return world, emissions
 
 
 def run_logic_phase_masked(
@@ -435,7 +491,7 @@ def run_logic_phase_masked(
     payload_channels: Optional[Dict[str, int]] = None,
     row_ids: Optional[torch.Tensor] = None,
     gather_fn=None,
-) -> World:
+) -> Tuple[World, List[Dict[str, Any]]]:
     """:func:`run_logic_phase` for rows in arbitrary order (the reference's
     behavior.py:723-811): the halo step's slab rows, where class slot
     ranges do not exist. ``type_specs``: (EntityClass, entity_type id).
@@ -446,9 +502,11 @@ def run_logic_phase_masked(
     ``row_ids``: the rows' global entity ids, handed to the tick as
     ``ctx.i`` (default ``arange``; the reference hands local row indices).
     ``gather_fn``: the resolver of ``ctx.gather`` for global neighbour ids
-    (the halo step's, over the home chunks). Not ported yet, and refused:
-    the ``"emit"`` key (ROADMAP slice C, item 14)."""
+    (the halo step's, over the home chunks). Returns (world, emissions),
+    each class's ``"emit"`` block over all rows, live where the class's
+    mask is (behavior.py:790-793)."""
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    emissions: List[Dict[str, Any]] = []
     despawn = None
     n = world.transform.x.shape[0]
     device = world.device
@@ -468,7 +526,8 @@ def run_logic_phase_masked(
         mask_cls = world.transform.active & (world.transform.entity_type == type_id)
         for path, value in outs.items():
             if path == "emit":
-                _refuse_emit(klass)
+                emissions.append(_emit_block(value, klass, 0, n, world, mask_cls))
+                continue
             if path == "despawn":
                 dm = torch.as_tensor(value, device=device) & mask_cls
                 despawn = dm if despawn is None else despawn | dm
@@ -485,7 +544,7 @@ def run_logic_phase_masked(
         world = write_field(world, path, torch.where(mask, vals, read_field(world, path)))
     if despawn is not None:
         world = apply_despawn_mask(world, despawn)
-    return world
+    return world, emissions
 
 
 class NotLayoutSafe(Exception):

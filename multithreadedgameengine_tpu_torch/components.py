@@ -5,8 +5,9 @@ Each component holds dense ``[N]`` tensors, one slot per entity, with the
 same field names as the reference package: the built-ins Transform,
 RigidBody, Collider, SpriteRenderer, MouseComponent, LightEmitter and
 ShadowCaster (components.py:59-261; every world carries all seven), and
-user components made by :func:`define_component` (:336-374). Particles and
-the shadow-sprite buffer come with the lighting and particle slice.
+user components made by :func:`define_component` (:336-374). Two more
+hold state that is not indexed by entity: the :class:`Particles` pool and
+the :class:`ShadowSprites` buffer (:264-328).
 
 dtypes are explicit: float32 for continuous state, int32 for ids and
 counters, bool for flags. ``tint``/``base_tint``/``light_color`` (and a
@@ -222,6 +223,63 @@ class ShadowCaster(Struct):
 
 
 _make_zeros(ShadowCaster, dict(active=B, shadow_radius=F32, height=F32))
+
+
+@dataclasses.dataclass
+class ShadowSprites(Struct):
+    """The shadow-sprite output buffer (components.py:264-287; the
+    shadowSpriteData analog, gameEngine.js:618-633): ``max_shadow_casting_lights
+    x max_shadows_per_light`` slots, written by ``ops.lighting`` each frame
+    for the renderer (pixi_worker.js:1578-1611)."""
+
+    active: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    rotation: torch.Tensor
+    scale_x: torch.Tensor
+    scale_y: torch.Tensor
+    alpha: torch.Tensor
+    radius: torch.Tensor
+
+
+_make_zeros(ShadowSprites, {
+    **{f.name: F32 for f in dataclasses.fields(ShadowSprites)}, "active": B,
+})
+
+
+@dataclasses.dataclass
+class Particles(Struct):
+    """The particle pool, ParticleComponent.js:9-51 (components.py:290-328):
+    ``[max_particles]`` slots of its own, not indexed by entity
+    (gameEngine.js:597-615)."""
+
+    active: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor  # negative is up; the floor is 0
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    lifespan: torch.Tensor  # ms
+    current_life: torch.Tensor  # ms
+    gravity: torch.Tensor
+    scale: torch.Tensor
+    alpha: torch.Tensor
+    tint: torch.Tensor  # int64 holding a uint32
+    base_tint: torch.Tensor  # int64 holding a uint32
+    texture_id: torch.Tensor
+    fade_on_the_floor: torch.Tensor  # ms of fade
+    time_on_floor: torch.Tensor  # ms
+    initial_alpha: torch.Tensor
+    stay_on_the_floor: torch.Tensor
+    is_on_screen: torch.Tensor
+
+
+_make_zeros(Particles, {
+    **{f.name: F32 for f in dataclasses.fields(Particles)},
+    "active": B, "tint": TINT, "base_tint": TINT, "texture_id": I32,
+    "stay_on_the_floor": B, "is_on_screen": B,
+})
 
 
 #: ``define_component`` dtype names (the reference's table, components.py:

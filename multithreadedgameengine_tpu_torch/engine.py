@@ -10,15 +10,24 @@ One frame (the reference's ``one_step_impl`` with the grid solver,
 engine.py:1460-1824), run eagerly:
 
 1. ``apply_inputs`` writes the mouse as entity 0;
-2. when a ticking class reads neighbours, the neighbour lists
-   (``ops.spatial.neighbor_lists``, or ``neighbor_lists_by_class`` with
-   ``spatial.per_class_assembly``) with the declared payload channels; then
-   ``behavior.run_logic_phase`` runs the ticks;
-3. ``render.extract.advance_animation``;
+2. when a ticking class reads neighbours, or shadows are on, the neighbour
+   lists (``ops.spatial.neighbor_lists``, or ``neighbor_lists_by_class``
+   with ``spatial.per_class_assembly``) with the declared payload channels;
+   then ``behavior.run_logic_phase`` runs the ticks;
+3. ``render.extract.advance_animation``, by the registry's frame counts;
 4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver,
    derived properties), or with position residency
    ``ops.physics_grid.resident_persistent_step`` then ``update_derived``;
-5. ``ops.culling.update_entity_visibility`` and the step metrics.
+5. with a particle pool: ``ops.particles.update_particles``, then
+   ``ops.decals.stamp_decals``, then the ticks' ``"emit"`` requests
+   (``apply_tick_emissions``), then ``ops.culling.update_particle_visibility``;
+6. ``ops.culling.update_entity_visibility``;
+7. with shadows: ``ops.lighting.shadow_sprites`` (or
+   ``shadow_sprites_by_class`` over per-class lists), and the step metrics.
+
+Host-side, ``Engine.sprites`` is the sprite registry (``assets``) and
+``Engine.emitter`` the particle emitter (``emitter``), whose queue lands in
+the pool before each ``step`` (``_flush_emissions``).
 
 The plan (``_build_plan``, the reference's ``_build_step``) resolves what
 the reference resolves before tracing: the solver geometry; solver "auto"
@@ -27,7 +36,9 @@ reference's gate picks it, ``physics_grid.use_symmetric``); the bin and
 attribute caches of ``rebin_interval > 1``; position residency; the banded
 boundary; whether ``step(n)`` runs the lazy-readback chunk; the cell-scan
 radius (``_resolve_spatial``), whether the frame builds neighbour lists, the
-per-class assembly specs and the payload channels (``_payload_plan``).
+per-class assembly specs (lights included when shadows are on) and the
+payload channels (``_payload_plan``); the particle, decal and shadow phases
+and the decal texture bank.
 
 ``device`` defaults to ``"cuda"``, which runs the CUDA kernels; ``"cpu"``
 runs their plain PyTorch versions. There is no automatic choice and no
@@ -65,10 +76,15 @@ from .behavior import (
     snake_case,
     write_field,
 )
-from .components import Collider, MouseComponent
+from .assets import SpriteRegistry
+from .components import Collider, LightEmitter, MouseComponent
 from .config import EngineConfig, make_config
+from .emitter import ParticleEmitterAPI, batch_to_device
 from .inputs import InputController, InputState
-from .ops.culling import update_entity_visibility
+from .ops.culling import update_entity_visibility, update_particle_visibility
+from .ops.decals import canvas_shape, default_decal_textures, stamp_decals, tile_grid_shape
+from .ops.lighting import shadow_sprites, shadow_sprites_by_class
+from .ops.particles import apply_emission, apply_tick_emissions, update_particles
 from .ops.physics import physics_step, update_derived
 from .ops.physics_grid import (
     bins_expired,
@@ -101,10 +117,6 @@ def _check_supported(cfg: EngineConfig) -> None:
         _refuse("physics.solver='neighbors'", "slice C, item 12")
     if lg.collision_events or lg.screen_events:
         _refuse("logic.collision_events / logic.screen_events", "slice C, item 13")
-    if cfg.particle.max_particles > 0 or cfg.particle.decals:
-        _refuse("particles and decals", "slice C, item 14")
-    if cfg.lighting.enabled:
-        _refuse("lighting", "slice C, item 14")
 
 
 def apply_inputs(world: World, inputs: InputState) -> World:
@@ -178,6 +190,17 @@ class StepPlan:
     empty_nbr: Optional[NeighborLists] = None
     #: per-class assembly: (class name, start, count, scan radius) each
     nbr_specs: Tuple[Tuple[str, int, int, int], ...] = ()
+    #: (class name, start, count) of the light classes whose per-class
+    #: lists the shadow pass walks
+    light_ranges: Tuple[Tuple[str, int, int], ...] = ()
+    #: the particle pool's phases, the decal stamping with its texture bank,
+    #: and the shadow sprites
+    has_particles: bool = False
+    decal_textures: Optional[torch.Tensor] = None
+    shadows_on: bool = False
+    #: whether ``step(n)`` may run the lazy chunk (residency, and nothing
+    #: that reads entity order every frame: engine.py:1844-1851)
+    lazy_chunks: bool = False
     #: payload channel of each declared per-neighbour field, and the fields
     #: of channels 3.. in order
     payload_channels: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -223,6 +246,8 @@ class Engine:
         self.device = torch.device(device)
         self.rng = Mulberry32(self.config.seed)
         self.input = InputController()
+        self.sprites = SpriteRegistry()
+        self.emitter = ParticleEmitterAPI(self)
         # center camera on world (gameEngine.js camera init)
         self.input.camera_x = self.config.world_width / 2
         self.input.camera_y = self.config.world_height / 2
@@ -326,7 +351,17 @@ class Engine:
         if self._initialized:
             raise RuntimeError("already initialized")
         n = max(1, self.entity_count)
-        world = make_world(n, self.device, self._custom_components)
+        cfg = self.config
+        decals = cfg.particle.decals and cfg.particle.max_particles > 0
+        lc = cfg.lighting
+        world = make_world(
+            n, self.device, self._custom_components,
+            max_particles=cfg.particle.max_particles,
+            decal_canvas_shape=canvas_shape(cfg) if decals else None,
+            decal_tile_shape=tile_grid_shape(cfg) if decals else None,
+            n_shadow_sprites=(lc.max_shadow_casting_lights * lc.max_shadows_per_light
+                              if lc.enabled and lc.shadows_enabled else 0),
+        )
         # grid-solver bin cache (physics.rebin_interval): installed at init,
         # stamp -1 = never binned
         if self.config.physics.rebin_interval > 1:
@@ -346,7 +381,7 @@ class Engine:
         for reg in self.classes.values():
             if reg.count == 0:
                 continue
-            ctx = SetupCtx(self.config, reg.start_index, reg.count, self.rng)
+            ctx = SetupCtx(self.config, reg.start_index, reg.count, self.rng, self.sprites)
             updates = reg.cls.setup(ctx) or {}
             self._track_radius(updates)
             for path, value in updates.items():
@@ -380,7 +415,8 @@ class Engine:
             if "." not in path:
                 raise KeyError(f"unknown spawn property {key!r}")
             updates[path] = value
-        extra = reg.cls.on_spawned(SpawnCtx(self.config, i, self.rng), dict(spawn_config)) or {}
+        extra = reg.cls.on_spawned(SpawnCtx(self.config, i, self.rng, self.sprites),
+                                   dict(spawn_config)) or {}
         for key, value in extra.items():
             updates[FIELD_ALIASES.get(key, key)] = value
         # Verlet previous-position sync: px = x - vx (gameObject.js:938-940)
@@ -437,7 +473,8 @@ class Engine:
                       else np.broadcast_to(np.asarray(v), (n,)))
                 for key, v in field_arrays.items()
             }
-            out = batch_hook(BatchSpawnCtx(self.config, idx, self.rng), cfg_arrays) or {}
+            out = batch_hook(BatchSpawnCtx(self.config, idx, self.rng, self.sprites),
+                             cfg_arrays) or {}
             for key, v in out.items():
                 put(FIELD_ALIASES.get(key, key), np.asarray(v))
         elif call_on_spawned and (
@@ -449,7 +486,7 @@ class Engine:
                     key: (np.asarray(v).item() if np.asarray(v).ndim == 0 else v[k])
                     for key, v in field_arrays.items()
                 }
-                ctx = SpawnCtx(self.config, int(idx[k]), self.rng)
+                ctx = SpawnCtx(self.config, int(idx[k]), self.rng, self.sprites)
                 for key, v in (reg.cls.on_spawned(ctx, cfg_k) or {}).items():
                     extra_cols.setdefault(FIELD_ALIASES.get(key, key), [None] * n)[k] = v
             for path, vals in extra_cols.items():
@@ -517,6 +554,17 @@ class Engine:
             return
         ops, self._pending_ops = self._pending_ops, []
         self.world = self._apply_columns(self.world, self._ops_to_columns(ops))
+
+    def _flush_emissions(self) -> None:
+        """Land the emitter's queue in the particle pool (engine.py:
+        1109-1122): first-fit claims, the excess past the free slots
+        dropped."""
+        batch, n = self.emitter.build_batch()
+        if batch is None:
+            return
+        pool, _spawned = apply_emission(self.world.particles,
+                                        batch_to_device(batch, self.device), n)
+        self.world = self.world.replace(particles=pool)
 
     def _despawn_updates(self, index: int) -> Dict[str, Any]:
         """Per-component active-flag clears for one despawned index."""
@@ -626,26 +674,33 @@ class Engine:
 
     def _ticks_read_neighbors(self) -> bool:
         """Whether a registered class ticks and reads its neighbour lists
-        (engine.py:1248-1260: events, the neighbour-list solver and shadows,
-        its other reasons to build lists, are refused here)."""
+        (engine.py:1248-1260; shadows are the frame's other reason to build
+        lists here, events and the neighbour-list solver being refused)."""
         return any(reg.count > 0 and _tick_fn(reg.cls) is not None and reg.cls.uses_neighbors
                    for reg in self.classes.values())
 
-    def _neighbor_specs(self, cfg: EngineConfig) -> Tuple[Tuple[str, int, int, int], ...]:
-        """Per-class assembly (engine.py:1396-1438, without the light and
-        hooked classes of items 13-14): each ticking class that reads
-        neighbours scans ceil(its largest visual range / cell) cells,
-        capped at the global radius."""
+    def _neighbor_specs(self, cfg: EngineConfig, shadows_on: bool):
+        """Per-class assembly (engine.py:1396-1438, without the hooked
+        classes of item 13): each class that ticks on its neighbours, and
+        with shadows each class that declares LightEmitter, scans ceil(its
+        largest visual range / cell) cells, capped at the global radius.
+        Returns (specs, light ranges)."""
         vr = self.world.collider.visual_range.cpu().numpy()
-        specs = []
+        specs, lights = [], []
         for reg in self.classes.values():
-            if reg.count == 0 or _tick_fn(reg.cls) is None or not reg.cls.uses_neighbors:
+            if reg.count == 0:
+                continue
+            ticks_nbr = _tick_fn(reg.cls) is not None and reg.cls.uses_neighbors
+            is_light = shadows_on and LightEmitter in reg.cls.collect_components()
+            if not (ticks_nbr or is_light):
                 continue
             s, c = reg.start_index, reg.count
             vr_c = float(vr[s:s + c].max())
             r_c = max(1, math.ceil(vr_c / cfg.spatial.cell_size)) if vr_c > 0 else 1
             specs.append((reg.cls.__name__, s, c, min(r_c, max(1, cfg.spatial.max_cell_radius))))
-        return tuple(specs)
+            if is_light:
+                lights.append((reg.cls.__name__, s, c))
+        return tuple(specs), tuple(lights)
 
     def _solver_plan(self, cfg: EngineConfig):
         """The grid solver's geometry from the registered radii, and solver
@@ -668,10 +723,14 @@ class Engine:
         return cfg, solver_geometry(cfg, max_r, mean_radius=mean_r), False
 
     def _frame_counts(self) -> torch.Tensor:
-        """Per-(sheet, animation) frame counts for the animation advance. No
-        sprite sheets are registered in the port (rendering is not ported),
-        so every animation has one frame."""
-        return torch.ones((1, 1), dtype=torch.int32, device=self.device)
+        """Per-(sheet, animation) frame counts for the animation advance,
+        int32 ``[sheets + 1, most animations]`` from the sprite registry
+        (engine.py:1206-1218); row 0 (no sheet) and unused entries are 1."""
+        sheets = self.sprites.sheets
+        fc = np.ones((len(sheets) + 1, max([1] + [len(s.animations) for s in sheets])), np.int32)
+        for sheet in sheets:
+            fc[sheet.sheet_id, :len(sheet.frame_counts)] = sheet.frame_counts
+        return torch.from_numpy(fc).to(self.device)
 
     def _residency_specs(self, cfg: EngineConfig):
         """The ticking classes' (tick_fn, start, count) when every tick is
@@ -739,10 +798,14 @@ class Engine:
             w = w.replace(solver_pos_step=-1)
         self.world = w
         residency = specs is not None
-        need_neighbors = self._ticks_read_neighbors()
-        nbr_specs = ()
+        shadows_on = cfg.lighting.enabled and cfg.lighting.shadows_enabled
+        # shadow sprites walk each light's neighbour list (engine.py:1249-1253)
+        need_neighbors = self._ticks_read_neighbors() or shadows_on
+        nbr_specs, light_ranges = (), ()
         if need_neighbors and cfg.spatial.per_class_assembly and cfg.spatial.method != "bruteforce":
-            nbr_specs = self._neighbor_specs(cfg)
+            nbr_specs, light_ranges = self._neighbor_specs(cfg, shadows_on)
+        has_particles = cfg.particle.max_particles > 0
+        decals_on = has_particles and cfg.particle.decals
         payload_channels, extra_paths = self._payload_plan(cfg)
         return StepPlan(
             cfg=cfg,
@@ -763,8 +826,14 @@ class Engine:
             need_neighbors=need_neighbors,
             empty_nbr=None if need_neighbors else empty_neighbor_lists(n, dev),
             nbr_specs=nbr_specs,
+            light_ranges=light_ranges,
             payload_channels=payload_channels,
             extra_paths=extra_paths,
+            has_particles=has_particles,
+            decal_textures=(default_decal_textures(len(self.sprites.textures), dev)
+                            if decals_on else None),
+            shadows_on=shadows_on,
+            lazy_chunks=residency and not (need_neighbors or has_particles),
         )
 
     def _one_step(self, world: World, inputs: InputState) -> Tuple[World, Dict[str, torch.Tensor]]:
@@ -783,9 +852,15 @@ class Engine:
         else:
             nbr = plan.empty_nbr
             n_binned = nbr.n_binned
-        world = run_logic_phase(world, nbr, inputs, cfg, plan.type_ranges,
-                                plan.payload_channels)
-        del nbr  # the candidate rows (288 MB on boids_15k) go before the solver runs
+        world, emissions = run_logic_phase(world, nbr, inputs, cfg, plan.type_ranges,
+                                           plan.payload_channels)
+        if plan.shadows_on:  # the shadow pass reads the lights' ids and d2
+            if plan.nbr_specs:
+                light_nbr = [(s, c, nbr[name]) for name, s, c in plan.light_ranges]
+            else:
+                light_nbr = nbr.replace(payload=None)
+        # the candidate rows (288 MB on boids_15k) go before the solver runs
+        del nbr
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
         if plan.residency:
             world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
@@ -796,13 +871,36 @@ class Engine:
         else:
             world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom)
             band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
+        p_active = torch.full((), -1, dtype=torch.int32, device=self.device)
+        if plan.has_particles:  # the particle worker's phases (engine.py:1714-1741)
+            pool, stamps, p_active = update_particles(
+                world.particles, cfg, cfg.dt_ratio, plan.decal_textures is not None)
+            world = world.replace(particles=pool)
+            if plan.decal_textures is not None:
+                canvas, dirty = stamp_decals(world.decal_canvas, world.decal_dirty, stamps,
+                                             plan.decal_textures, cfg)
+                world = world.replace(decal_canvas=canvas, decal_dirty=dirty)
+            # tick emissions land after this frame's pool update: new
+            # particles first move next frame
+            if emissions and cfg.particle.max_emit_per_step > 0:
+                pool, spawned = apply_tick_emissions(world.particles, emissions,
+                                                     cfg.particle.max_emit_per_step)
+                world = world.replace(particles=pool)
+                p_active = p_active + spawned
+            world = update_particle_visibility(world, cfg, inputs)
         world = update_entity_visibility(world, cfg, inputs)
+        if plan.shadows_on:  # with this frame's visibility (engine.py:1778-1798)
+            world = world.replace(shadow_sprites=(
+                shadow_sprites_by_class(world, light_nbr, cfg) if plan.nbr_specs
+                else shadow_sprites(world, light_nbr, cfg)))
         world = world.replace(step_count=world.step_count + 1)
         t = world.transform
         metrics = {
             "active_count": torch.sum(t.active, dtype=torch.int32),
             # entities in the neighbour grid table (-1: no lists built)
             "n_binned": n_binned,
+            # live particles after the frame's emissions (-1: no pool)
+            "active_particles": p_active,
             # grid-solver cell-capacity overflow: entities degraded to
             # boundary-only this frame
             "solver_overflow": solver_overflow,
@@ -831,10 +929,12 @@ class Engine:
     def step(self, n: int = 1, block: bool = False) -> Dict[str, torch.Tensor]:
         """Advance ``n`` frames with the inputs of this call (the reference
         freezes the input snapshot for a chunk of frames the same way).
-        Queued spawns/despawns apply first. Returns the last frame's metrics
-        as device tensors; ``block=True`` waits for the device.
+        Queued spawns/despawns apply first, then queued emissions land in
+        the particle pool. Returns the last frame's metrics as device
+        tensors; ``block=True`` waits for the device.
 
-        With position residency and ``n > 1`` this is the reference's
+        With position residency, no neighbour lists and no particle pool,
+        and ``n > 1``, this is the reference's
         lazy-readback chunk (engine.py:1833-1899): a frame is full (entity
         order synced from the layout, then the eager frame) when it is the
         call's last, the layout is stale or the bins have expired; every
@@ -851,11 +951,12 @@ class Engine:
         self._flush_pending()
         if self._plan is None:  # the flush wrote a radius above the bound
             self._plan = self._build_plan()
+        self._flush_emissions()
         plan = self._plan
         inputs = self.input.snapshot(self.device)
         t0 = time.perf_counter()
         world = self.world
-        if plan.residency and n > 1:
+        if plan.lazy_chunks and n > 1:
             interval = max(2, plan.cfg.physics.rebin_interval)
             drift = torch.zeros((), dtype=torch.int32, device=self.device)
             for i in range(n):

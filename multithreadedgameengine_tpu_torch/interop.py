@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .components import BUILTIN_COMPONENTS, define_component
+from .components import BUILTIN_COMPONENTS, Particles, ShadowSprites, define_component
 from .config import EngineConfig, make_config
 from .state import World
 
@@ -87,18 +87,16 @@ def world_from_jax(np_world, device, geom=None) -> World:
     (bin cache, attribute and position layouts, their stamps) are converted
     to the port's layout when present, which needs the solver geometry
     ``geom`` of the run (a ``GridGeom``): so a reference world stepped
-    partway between rebins continues in the port. Reference state the port
-    does not run yet (the screen-event tables, particles) must be absent;
-    the event, decal and shadow-sprite tables of a world without those
-    features are placeholders and are left behind."""
-    unported = [leaf for leaf in ("prev_onscreen",)
-                if getattr(np_world, leaf, None) is not None]
-    if np.asarray(np_world.particles.x).size:
-        unported.append("particles")
-    if unported:
-        raise NotImplementedError(
-            f"World.{', World.'.join(unported)} set: not ported to PyTorch yet"
-        )
+    partway between rebins continues in the port. A non-empty particle
+    pool comes across with the decal canvas and dirty tiles (uint8 and
+    bool as they are), and a non-empty shadow-sprite buffer as it is; the
+    reference's empty pools and placeholder tables, of a world without
+    those features, are left behind (the port holds None there), and so is
+    its PRNG key, which the port has no user of. Reference state the port
+    does not run yet (the screen-event tables) must be absent."""
+    if getattr(np_world, "prev_onscreen", None) is not None:
+        raise NotImplementedError("World.prev_onscreen set: not ported to PyTorch yet")
+
     def convert(cls, src):
         return cls(**{
             field: torch.from_numpy(
@@ -135,5 +133,12 @@ def world_from_jax(np_world, device, geom=None) -> World:
                     _layout_from_reference(np.asarray(a), geom)).to(device)
         if getattr(np_world, "solver_pos_step", None) is not None:
             solver["solver_pos_step"] = int(np.asarray(np_world.solver_pos_step))
+    extra = {}
+    if np.asarray(np_world.particles.x).size:
+        extra["particles"] = convert(Particles, np_world.particles)
+        extra["decal_canvas"] = torch.from_numpy(np.array(np_world.decal_canvas)).to(device)
+        extra["decal_dirty"] = torch.from_numpy(np.array(np_world.decal_dirty)).to(device)
+    if np.asarray(np_world.shadow_sprites.x).size:
+        extra["shadow_sprites"] = convert(ShadowSprites, np_world.shadow_sprites)
     return World(**comps, step_count=int(np.asarray(np_world.step_count)), custom=custom,
-                 **solver)
+                 **solver, **extra)

@@ -1,9 +1,9 @@
 """Screen-space culling: world to screen transform and viewport test.
 
-PyTorch counterpart of ``camera_bounds`` and ``update_entity_visibility`` in
-``multithreadedgameengine_tpu/ops/culling.py:24-47`` (particle_worker.js:
-1012-1056): ``screen = world * zoom - camera * zoom``, visible when inside
-the canvas widened by ``renderer.cull_margin``.
+PyTorch counterpart of ``multithreadedgameengine_tpu/ops/culling.py``
+(particle_worker.js:1012-1056 for entities, :506-517 for particles):
+``screen = world * zoom - camera * zoom``, visible when inside the canvas
+widened by ``renderer.cull_margin``.
 """
 
 from __future__ import annotations
@@ -37,4 +37,19 @@ def update_entity_visibility(world: World, cfg: EngineConfig, inputs: InputState
             screen_y=torch.where(t.active, sy, s.screen_y),
             is_on_screen=torch.where(t.active, on, s.is_on_screen),
         )
+    )
+
+
+def update_particle_visibility(world: World, cfg: EngineConfig, inputs: InputState) -> World:
+    """particle_worker.js:506-517 (culling.py:49-60): the pool's live
+    particles get ``is_on_screen`` by the entities' test."""
+    p = world.particles
+    if p is None:
+        return world
+    zoom, off_x, off_y, (min_x, max_x, min_y, max_y) = camera_bounds(cfg, inputs)
+    sx = p.x * zoom - off_x
+    sy = p.y * zoom - off_y
+    on = (sx > min_x) & (sx < max_x) & (sy > min_y) & (sy < max_y)
+    return world.replace(
+        particles=p.replace(is_on_screen=torch.where(p.active, on, p.is_on_screen))
     )

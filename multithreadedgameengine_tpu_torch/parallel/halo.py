@@ -40,9 +40,11 @@ Under phase A a tick's ``ctx.world`` holds the slab's routed rows, as in
 the reference, and ``ctx.gather`` resolves a path against the home chunks'
 frame-start fields in global-id order (halo.py:664-672).
 
-Not ported yet, and refused: collision events, particles, decals and
-shadows (ROADMAP slice C); the chunk's input timeline is a list of
-``InputState``. ``check_vma`` is an XLA-only knob and is not ported.
+Not ported yet, and refused: collision events (ROADMAP slice C, item 13)
+and, under this step, particles, decals and lighting (the mixed passes of
+item 14, which ``Engine.step`` runs on one device); the chunk's input
+timeline is a list of ``InputState``. ``check_vma`` is an XLA-only knob
+and is not ported.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ import torch
 from ..behavior import read_field, run_logic_phase_masked
 from ..components import BUILTIN_COMPONENTS
 from ..config import EngineConfig
-from ..engine import _check_supported, apply_inputs
+from ..engine import _check_supported, _refuse, apply_inputs
 from ..inputs import InputState
 from ..ops.culling import update_entity_visibility
 from ..ops.physics import update_derived, verlet_move
@@ -295,10 +297,11 @@ def _gather_home(homes: Sequence[World]):
 
 def slab_logic(chunk: World, inputs: InputState, plan: HaloPlan, d: int, gather_fn) -> World:
     """Phase A without neighbours (``phase_a_local``, halo.py:730-754): the
-    ticks on slab d's home chunk, with empty lists."""
+    ticks on slab d's home chunk, with empty lists. The step refuses a
+    particle pool, so emissions drop, as the reference's do without one."""
     return run_logic_phase_masked(chunk, plan.empty_nbr, inputs, plan.cfg, plan.type_specs,
                                   plan.payload_channels, row_ids=plan.gid(d, chunk.device),
-                                  gather_fn=gather_fn)
+                                  gather_fn=gather_fn)[0]
 
 
 def slab_move(chunk: World, plan: HaloPlan) -> World:
@@ -384,8 +387,9 @@ def slab_neighbor_logic(local: World, res_gid: torch.Tensor, bins, inputs: Input
     flat = table[cand_cell.to(torch.int64)].view(lt.x.shape[0], -1, table.shape[-1])
     nbr = accept_candidates(flat, lt.x, lt.y, res_gid, local.collider.visual_range, valid_ent,
                             cfg.spatial.max_neighbors, bins.n_binned)
-    local = run_logic_phase_masked(local, nbr, inputs, cfg, plan.type_specs,
-                                   plan.payload_channels, row_ids=res_gid, gather_fn=gather_fn)
+    local, _emissions = run_logic_phase_masked(local, nbr, inputs, cfg, plan.type_specs,
+                                               plan.payload_channels, row_ids=res_gid,
+                                               gather_fn=gather_fn)
     return pack_world_rows(local, plan.leaf_specs)
 
 
@@ -557,7 +561,10 @@ def make_halo_step(engine, mesh: SlabMesh, oversub: float = 4.0, chunk_steps: in
         raise ValueError("halo step requires spatial.method='grid'")
     if cfg.physics.solver == "neighbors":
         raise ValueError("halo step requires the grid constraint solver")
-    _check_supported(cfg)  # events, particles, decals, lighting: slice C
+    _check_supported(cfg)  # events and the neighbour-list solver
+    if cfg.particle.max_particles > 0 or cfg.particle.decals or cfg.lighting.enabled:
+        _refuse("particles, decals and lighting under the halo step",
+                "slice C, item 14 (the mixed halo passes)")
     cfg, solver_geom, forced = engine._solver_plan(cfg)
     if solver_geom is None or forced:
         raise ValueError("halo step could not derive a solver geometry (no radii)")

@@ -12,9 +12,16 @@ a launch argument (its hash salt) without a device read. The solver-cache
 stamps ``solver_bin_step`` and ``solver_pos_step`` are host ints for the
 same reason: where the reference picks a branch inside its program with
 ``jax.lax.cond`` on them, the port picks it with a host ``if``, so no frame
-reads the device to choose. The reference's collision-pair and event
-tables, decal canvas, shadow sprites, particle pool and device PRNG key
-belong to features this port refuses so far and are not allocated.
+reads the device to choose.
+
+The world also holds the particle pool ``[max_particles]``, the decal
+canvas (uint8 ``[H, W, 4]`` at decal resolution) with its dirty-tile grid,
+and the shadow-sprite buffer ``[max_shadow_casting_lights x
+max_shadows_per_light]``, each allocated by :func:`make_world` when the
+configuration turns its feature on and None otherwise (the reference keeps
+empty placeholders there). The reference's collision-pair and event tables
+belong to events (ROADMAP slice C, item 13), which the port refuses, and
+its device PRNG key has no user here; neither is allocated.
 
 ``EntityPool`` is the reference's host-side numpy free list, copied as is.
 """
@@ -22,7 +29,7 @@ belong to features this port refuses so far and are not allocated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +38,10 @@ from .components import (
     Collider,
     LightEmitter,
     MouseComponent,
+    Particles,
     RigidBody,
     ShadowCaster,
+    ShadowSprites,
     SpriteRenderer,
     Struct,
     Transform,
@@ -76,6 +85,13 @@ class World(Struct):
     solver_px: Optional[torch.Tensor] = None
     solver_py: Optional[torch.Tensor] = None
     solver_pos_step: Optional[int] = None
+    # the particle pool (particle.max_particles > 0), the decal canvas and
+    # its dirty tiles (particle.decals), the shadow sprites (lighting with
+    # shadows): the reference's state.py:55-82
+    particles: Optional[Particles] = None
+    decal_canvas: Optional[torch.Tensor] = None  # uint8[H, W, 4]
+    decal_dirty: Optional[torch.Tensor] = None  # bool[tiles_y, tiles_x]
+    shadow_sprites: Optional[ShadowSprites] = None
 
     @property
     def n_entities(self) -> int:
@@ -87,8 +103,15 @@ class World(Struct):
 
 
 def make_world(n_entities: int, device,
-               custom_components: Optional[Dict[str, Any]] = None) -> World:
-    """A zeroed world; ``custom_components``: {name: component class}."""
+               custom_components: Optional[Dict[str, Any]] = None,
+               max_particles: int = 0,
+               decal_canvas_shape: Optional[Tuple[int, int]] = None,
+               decal_tile_shape: Optional[Tuple[int, int]] = None,
+               n_shadow_sprites: int = 0) -> World:
+    """A zeroed world; ``custom_components``: {name: component class}. The
+    particle pool, decal canvas and tiles, and shadow sprites are allocated
+    when ``max_particles``, ``decal_canvas_shape`` (with
+    ``decal_tile_shape``) and ``n_shadow_sprites`` ask for them."""
     return World(
         transform=Transform.zeros(n_entities, device),
         rigid_body=RigidBody.zeros(n_entities, device),
@@ -99,6 +122,13 @@ def make_world(n_entities: int, device,
         shadow=ShadowCaster.zeros(n_entities, device),
         custom={name: cls.zeros(n_entities, device)
                 for name, cls in (custom_components or {}).items()},
+        particles=Particles.zeros(max_particles, device) if max_particles > 0 else None,
+        decal_canvas=(torch.zeros((*decal_canvas_shape, 4), dtype=torch.uint8, device=device)
+                      if decal_canvas_shape else None),
+        decal_dirty=(torch.zeros(decal_tile_shape, dtype=torch.bool, device=device)
+                     if decal_canvas_shape else None),
+        shadow_sprites=(ShadowSprites.zeros(n_shadow_sprites, device)
+                        if n_shadow_sprites > 0 else None),
     )
 
 

@@ -526,3 +526,69 @@ def test_halo_boids_on_card_bit_equal_with_engine_step(cuda):
                            getattr(_get_comp(b, cname), fname)), f"{cname}.{fname}"
     assert int(m["route_overflow_logic"]) == 0 and int(m["route_overflow_solver"]) == 0
     assert int(m["n_binned"]) == 4096
+
+
+def predators_scene(device, **kw):
+    """The predators scene with the camera zoomed out over the world (every
+    light and caster on screen), as ``chip_smoke.py`` drives it."""
+    from multithreadedgameengine_tpu_torch.models.predators import make_predators_engine
+
+    eng = make_predators_engine(device=device, **kw)
+    eng.input.camera_x, eng.input.camera_y, eng.input.camera_zoom = 0.0, 0.0, 0.3
+    return eng
+
+
+def test_predators_on_card_match_cpu(cuda):
+    """400 prey, 8 predators and 5 lights, a burst that lands on overlapping
+    patches and the demo's blood, 6 frames on the card against the CPU.
+    Integer state (animation, dirty flags, the pool, the dirty tiles, the
+    shadows kept) exact; positions within 8 ulps at the world's extent (the
+    ticks' sums run in another order on the card); canvas bytes within 1."""
+    from multithreadedgameengine_tpu_torch.models.predators import BLOOD
+
+    snaps = []
+    for device in (cuda, "cpu"):
+        eng = predators_scene(device, n_prey=400, n_predators=8, n_lights=5,
+                              world_width=1600.0, world_height=1000.0)
+        eng.step(1)
+        t = eng.world.transform
+        eng.emitter.emit_batch(x=t.x[1:17].cpu().numpy(), y=t.y[1:17].cpu().numpy(), **BLOOD)
+        eng.emitter.emit_batch(x=[300.0, 310.0], y=[300.0, 305.0], count=10, z=-1.0, vz=5.0,
+                               speed={"min": 0.5, "max": 3.0}, angle_xy=(0.0, 360.0),
+                               gravity=0.0, lifespan=9000.0, texture="blood",
+                               scale={"min": 0.5, "max": 2.0}, stay_on_the_floor=True)
+        m = eng.step(5)
+        assert int(m["n_binned"]) == int(m["active_count"]) == 414
+        snaps.append(eng.snapshot())
+    a, b = snaps
+    for u, v in ((a.transform.active, b.transform.active),
+                 (a.rigid_body.collision_count, b.rigid_body.collision_count),
+                 (a.sprite.animation_state, b.sprite.animation_state),
+                 (a.sprite.animation_frame, b.sprite.animation_frame),
+                 (a.sprite.render_dirty, b.sprite.render_dirty),
+                 (a.particles.active, b.particles.active), (a.decal_dirty, b.decal_dirty),
+                 (a.shadow_sprites.active, b.shadow_sprites.active)):
+        assert torch.equal(u, v)
+    tol = 8 * float(np.spacing(np.float32(1600.0)))
+    assert (a.transform.x - b.transform.x).abs().max().item() <= tol
+    assert (a.transform.y - b.transform.y).abs().max().item() <= tol
+    assert (a.decal_canvas.int() - b.decal_canvas.int()).abs().max().item() <= 1
+    assert bool((b.decal_canvas[..., 3] > 0).any()) and bool(b.shadow_sprites.active.any())
+
+
+def test_predators_operating_point_runs_k1_once_a_frame(cuda):
+    """BASELINE config 4 at full width on the card: 3 frames through
+    ``Engine.step``, K1 once a frame and no other kernel, every entity
+    binned, no overflow, finite, the shadow sprites capped."""
+    eng = predators_scene(cuda)
+    for fn in (cuda_kernels.pair_pass_resident, cuda_kernels.pair_pass_symmetric,
+               cuda_kernels.pair_pass_grid, cuda_kernels.expand):
+        fn.launches = 0
+    m = eng.step(3, block=True)
+    assert cuda_kernels.pair_pass_resident.launches == 3
+    assert (cuda_kernels.pair_pass_symmetric.launches, cuda_kernels.pair_pass_grid.launches,
+            cuda_kernels.expand.launches) == (0, 0, 0)
+    assert int(m["n_binned"]) == int(m["active_count"]) == 15_014
+    assert int(m["solver_overflow"]) == 0 and int(m["nonfinite_count"]) == 0
+    assert 0 < int(eng.world.shadow_sprites.active.sum()) <= 5 * 15
+    assert eng.world.decal_canvas.shape == (1000, 2500, 4)

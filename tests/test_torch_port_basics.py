@@ -135,12 +135,38 @@ def test_mulberry32_streams_match_reference(seed):
     (dict(solver="neighbors"), {}),
     ({}, dict(logic=dict(collision_events=True))),
     ({}, dict(logic=dict(screen_events=True))),
-    ({}, dict(particle=dict(max_particles=16))),
-    ({}, dict(lighting=dict(enabled=True))),
-], ids=["neighbors", "collision_events", "screen_events", "particles", "lighting"])
+], ids=["neighbors", "collision_events", "screen_events"])
 def test_unported_config_is_refused(physics, other):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(make_config(physics=physics, **other), device="cpu")
+
+
+@pytest.mark.parametrize("other", [
+    dict(particle=dict(max_particles=16)),
+    dict(lighting=dict(enabled=True)),
+], ids=["particles", "lighting"])
+def test_slice_c2_config_runs(other):
+    """The configurations slice C2 ported, refused before it, build and run
+    2 frames on the CPU: a particle pool (with the emitter's queue), and
+    lighting with its shadow sprites (the frame then builds neighbour
+    lists)."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(n_balls=60, seed=4, device="cpu", world_width=600.0,
+                            world_height=400.0, **other)
+    assert eng.emitter.emit(count=40, x=300.0, y=100.0, z=-10.0, lifespan=9000.0) == (
+        40 if "particle" in other else 0)
+    m = eng.step(2)
+    w = eng.world
+    assert w.step_count == 2
+    assert bool((torch.isfinite(w.transform.x) & torch.isfinite(w.transform.y)).all())
+    if "particle" in other:
+        assert int(m["active_particles"]) == 16 and w.shadow_sprites is None
+        assert w.decal_canvas is None  # decals off
+    else:
+        assert int(m["active_particles"]) == -1 and w.particles is None
+        assert eng._plan.shadows_on and int(m["n_binned"]) == 61
+        assert w.shadow_sprites.active.shape == (20 * 15,)
 
 
 @pytest.mark.parametrize("physics", [

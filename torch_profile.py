@@ -4,9 +4,11 @@
     python3 torch_profile.py [--frames 20] [--out build/torch_profile.json]
 
 For each cell -- the demo scene (10,000 balls, ``bench.py``'s scene), the
-JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs)
-and BASELINE config 3 (``boids_15k``, ``chip_smoke.py`` phase 7: 15,000
-boids, ``run_ladder.py:166-188``) through ``Engine.step``, and the halo
+JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs),
+BASELINE config 3 (``boids_15k``, ``chip_smoke.py`` phase 7: 15,000
+boids, ``run_ladder.py:166-188``) and BASELINE config 4
+(``predators_15k``, ``chip_smoke.py`` phase 10: the predators demo's
+operating point, camera zoomed out) through ``Engine.step``, and the halo
 rungs (``chip_smoke.py`` phases 6 and 8: the 1M balls scene and the
 102,400-boid scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one
 card) through ``parallel.make_halo_step`` -- it warms up, then:
@@ -15,9 +17,12 @@ card) through ``parallel.make_halo_step`` -- it warms up, then:
   ending in ``torch.cuda.synchronize`` (profiler off);
 - profiles one more chunk with ``torch.profiler`` (CPU and CUDA activities)
   and sums device time by kernel name;
-- for boids_15k, profiles ``--frames`` builds of the frame's neighbour
-  lists alone (``ops.spatial.neighbor_lists`` on the cell's last world),
-  and reports their device time a build and its share of a frame's.
+- for boids_15k and predators_15k, profiles ``--frames`` builds of the
+  frame's neighbour lists alone (``ops.spatial.neighbor_lists`` on the
+  cell's last world), and for predators_15k ``--frames`` calls of the
+  64-stamp decal loop alone (``ops.decals.stamp_decals`` on the stamp batch
+  of the cell's last pool), and reports the device time of one and its
+  share of a frame's.
 
 It prints, per cell, wall ms/step (median of the three chunks, profiler
 off), device ms/step and the device's busy share over the profiled chunk,
@@ -51,6 +56,7 @@ from chip_smoke import (
     boids_engine,
     card_name_and_limit,
     neighbor_lists_of,
+    predators_engine,
 )
 
 CELLS = {
@@ -60,17 +66,23 @@ CELLS = {
     "halo_1m_d4": dict(n_balls=HALO_N - 1, seed=123456, world_width=HALO_WORLD[0],
                        world_height=HALO_WORLD[1]),
     "boids_15k": dict(boids=BOIDS_N),
+    "predators_15k": dict(predators=True),
     "halo_boids_102k_d4": dict(boids=HALO_BOIDS_N - 1),
 }
 
 
 def engine_runner(kw: dict):
     """``run(frames)`` through ``Engine.step``, what its plan picked, and
-    the neighbour build alone (None for a scene that builds no lists)."""
+    the parts profiled alone ({name: fn}: the neighbour build of a scene
+    that builds lists, the stamp loop of one with decals)."""
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.ops.decals import stamp_decals
+    from multithreadedgameengine_tpu_torch.ops.particles import update_particles
 
     if "boids" in kw:
         eng = boids_engine("cuda", kw["boids"], BOIDS_WORLD, CONFIG3_SPATIAL)
+    elif "predators" in kw:
+        eng = predators_engine("cuda")
     else:
         eng = make_balls_engine(device="cuda", **kw)
 
@@ -85,7 +97,20 @@ def engine_runner(kw: dict):
     def lists():
         neighbor_lists_of(eng.world, eng.config)
 
-    return run, info, (lists if "boids" in kw else None)
+    stamps = []
+
+    def stamp_loop():
+        w, cfg = eng.world, eng.config
+        if not stamps:
+            stamps.append(update_particles(w.particles, cfg, cfg.dt_ratio, True)[1])
+        stamp_decals(w.decal_canvas, w.decal_dirty, stamps[0], eng._plan.decal_textures, cfg)
+
+    alone = {}
+    if "boids" in kw or "predators" in kw:
+        alone["neighbor_lists"] = lists
+    if "predators" in kw:
+        alone["stamp_decals"] = stamp_loop
+    return run, info, alone
 
 
 def halo_runner(kw: dict):
@@ -111,7 +136,7 @@ def halo_runner(kw: dict):
             state["chunks"], _m = step(state["chunks"], ins)
         torch.cuda.synchronize()
 
-    return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}, None
+    return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}, {}
 
 
 def device_us(prof):
@@ -128,7 +153,7 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run, info, lists = (halo_runner if name.startswith("halo") else engine_runner)(kw)
+    run, info, alone = (halo_runner if name.startswith("halo") else engine_runner)(kw)
     run(frames)  # warm-up: the first rebin, the kernel build
     walls = []
     for _ in range(3):
@@ -164,16 +189,17 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
             for us, c, k in by_kernel[:top]
         ],
     }
-    if lists is not None:
-        lists()
+    for part, fn in alone.items():
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(frames):
-                lists()
+                fn()
             torch.cuda.synchronize()
-        _k, lists_us = device_us(prof)
-        out["neighbor_lists_device_ms"] = lists_us / frames / 1e3
-        out["neighbor_lists_share"] = lists_us / total_us
+        part_k, part_us = device_us(prof)
+        out[f"{part}_device_ms"] = part_us / frames / 1e3
+        out[f"{part}_device_ops"] = sum(k[1] for k in part_k) / frames
+        out[f"{part}_share"] = part_us / total_us
     return out
 
 
@@ -201,9 +227,11 @@ def main() -> int:
               f"device_ms_per_step={r['device_ms_per_step']:.4f} "
               f"busy_share={r['busy_share']:.3f} "
               f"device_ops_per_step={r['device_ops_per_step']:.1f}"
-              + (f" neighbor_lists_device_ms={r['neighbor_lists_device_ms']:.4f} "
-                 f"neighbor_lists_share={r['neighbor_lists_share']:.3f}"
-                 if "neighbor_lists_share" in r else ""), flush=True)
+              + "".join(f" {part}_device_ms={r[part + '_device_ms']:.4f} "
+                        f"{part}_device_ops={r[part + '_device_ops']:.1f} "
+                        f"{part}_share={r[part + '_share']:.3f}"
+                        for part in ("neighbor_lists", "stamp_decals")
+                        if part + "_share" in r), flush=True)
         for t in r["top"]:
             print(f"    {t['ms_per_step']:9.4f} ms/step {t['share'] * 100:5.1f}% "
                   f"x{t['calls_per_step']:.1f}  {t['name']}", flush=True)
