@@ -80,7 +80,22 @@ Phases, each printing one line or more before the last:
    decal loop alone on that run's stamp batch (``[stamp_decals]``); K1
    against its plain version on the scene's layout and timed there; then
    400 prey on the card against the same scene on the CPU for 6 frames with
-   a landing burst (``[predators_reference]``).
+   a landing burst (``[predators_reference]``);
+11. slice C3's main path, BASELINE config 4 with events on as the JAX
+   ladder's ``rung_predators`` runs it (``benchmarks/run_ladder.py:
+   199-240``: ``logic.collision_events``, ``event_chunk`` 60,
+   ``event_overlap``), at ``[predators_15k]``'s camera: 5 warm-up frames,
+   one 60-frame chunk whose frames run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read inside a
+   chunk), then 3 chunks back to back with one sync (``[predators_events]``:
+   steps/s, the Enter/Stay/Exit rows dispatched, the blood particles the
+   predators' hook queued, live particles, pairs recorded and dropped, log
+   rows dropped, canvas pixels changed, K1 launches); the 400-prey scene
+   with a predator placed on a prey, events on, on the card and on the CPU
+   for 6 frames (``[events_reference]``: per-frame event tables and hook
+   calls identical, pool and canvas within ``[predators_reference]``'s
+   bounds); and on the card at ``event_chunk`` 1, 4 and 4 with overlap for
+   12 frames (``[events_chunk]``: hook calls identical).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -134,6 +149,10 @@ PRED_WARMUP, PRED_FRAMES, PRED_BLOOD_FRAMES = 5, 20, 100
 PRED_CAMERA = (0.0, 0.0, 0.3)
 PRED_REF = dict(n_prey=400, n_predators=8, n_lights=5, world_width=1600.0, world_height=1000.0)
 PRED_REF_FRAMES = 6
+# slice C3: the JAX ladder's predators rung with events (run_ladder.py:208-240)
+EVENTS_LOGIC = dict(collision_events=True, event_chunk=60, event_overlap=True)
+EV_WARMUP, EV_CHUNK, EV_CHUNKS = 5, 60, 3
+EV_CHUNK_FRAMES = 12
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -1006,6 +1025,207 @@ def predators_reference(dev):
           "predators_reference: nothing stamped or no shadow cast")
 
 
+def no_host_reads(fn):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation that waits for the card inside it raises."""
+    import torch
+
+    def wrapped(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return wrapped
+
+
+def event_recorders(eng):
+    """Count the rows each kind of collision event dispatched and the blood
+    particles the hooks queued, by wrapping the engine's dispatch and its
+    emitter. Returns the running totals."""
+    totals = {"enter": 0, "stay": 0, "exit": 0, "blood": 0}
+    fire, emit = eng._fire_collision_tables, eng.emitter.emit_batch
+
+    def counted_fire(ctx, enters, stays, exits):
+        for key, table in (("enter", enters), ("stay", stays), ("exit", exits)):
+            totals[key] += len(table)
+        return fire(ctx, enters, stays, exits)
+
+    def counted_emit(**kw):
+        n = emit(**kw)
+        totals["blood"] += n
+        return n
+
+    eng._fire_collision_tables, eng.emitter.emit_batch = counted_fire, counted_emit
+    return totals
+
+
+def predators_events_phase(dev):
+    """Slice C3's main path: BASELINE config 4 with events on, as
+    ``rung_predators`` runs it. Returns K1's launches over the run."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.engine import _EventLog
+
+    eng = predators_engine(dev, logic=EVENTS_LOGIC)
+    eng._flush_pending()
+    canvas0 = eng.world.decal_canvas.clone()
+    totals = event_recorders(eng)
+    zero_counts()
+    eng.step(EV_WARMUP, block=True)
+    # one chunk whose frames and log writes may not wait for the card
+    eng._one_step = no_host_reads(eng._one_step)
+    write = _EventLog.write
+    _EventLog.write = no_host_reads(write)
+    try:
+        eng.step(EV_CHUNK)
+    finally:
+        _EventLog.write = write
+        del eng._one_step
+    eng.sync()
+    t0 = time.perf_counter()
+    for _ in range(EV_CHUNKS):
+        eng.step(EV_CHUNK)
+    eng.sync()
+    dt = time.perf_counter() - t0
+    k1, k2, k3 = read_counts()
+    frames = EV_WARMUP + (1 + EV_CHUNKS) * EV_CHUNK
+    w, m, cfg = eng.world, eng.metrics, eng.config
+    subs = cfg.physics.sub_step_count
+    ok = finite(w)
+    mi = {k: int(v.item()) for k, v in m.items()}
+    changed = int((w.decal_canvas != canvas0).any(-1).sum().item())
+    log("predators_events", card=repr(card_name_and_limit()), entities=w.n_entities,
+        frames=frames, timed_frames=EV_CHUNKS * EV_CHUNK, steps_per_s=EV_CHUNKS * EV_CHUNK / dt,
+        event_chunk=cfg.logic.event_chunk, overlap=cfg.logic.event_overlap,
+        enter_rows=totals["enter"], stay_rows=totals["stay"], exit_rows=totals["exit"],
+        blood_queued=totals["blood"], active_particles=mi["active_particles"],
+        collision_pair_count=mi["collision_pair_count"],
+        collision_pairs_dropped=mi["collision_pairs_dropped"],
+        event_rows_dropped=mi["event_rows_dropped"], canvas_px_changed=changed,
+        k1_launches=k1, expected_k1=frames * subs, k2_launches=k2, k3_launches=k3,
+        scope_hooked=eng._plan.scope_hooked, solver_overflow=mi["solver_overflow"],
+        n_binned=mi["n_binned"], chunk_without_host_reads=True, finite=ok)
+    check(ok and mi["nonfinite_count"] == 0, "predators_events: non-finite positions")
+    check(w.step_count == frames, "predators_events: step_count")
+    check(k1 == frames * subs and k2 == 0 and k3 == 0,
+          f"predators_events: K1 {k1}, K2 {k2}, K3 {k3} launches; expected {frames * subs}, 0, 0")
+    check(mi["solver_overflow"] == 0, f"predators_events: solver_overflow {mi['solver_overflow']}")
+    check(totals["stay"] > 0 and totals["blood"] > 0,
+          f"predators_events: no contact fired the blood hook ({totals})")
+    check(changed > 0, "predators_events: no blood reached the canvas")
+    del eng, w, canvas0
+    torch.cuda.empty_cache()
+    return k1
+
+
+def events_scene(dev, chunk, overlap=False):
+    """``PRED_REF``'s scene with events on, spawned as
+    ``make_predators_engine`` spawns it but with the first predator 5 px
+    from the first prey, so contacts exist from the first frame
+    (``tests/test_torch_events.py``'s). Records the rows each frame's
+    dispatch hands the hooked kinds (Stay: the predators' batch hook) and
+    every ``emit_batch``'s positions. Returns (engine, calls, emits)."""
+    from multithreadedgameengine_tpu_torch.models.predators import make_predators_engine
+
+    eng = make_predators_engine(device=dev, spawn=False, **PRED_REF, logic=dict(
+        collision_events=True, event_chunk=chunk, event_overlap=overlap))
+    eng.input.camera_x, eng.input.camera_y, eng.input.camera_zoom = PRED_CAMERA
+    w, h = eng.config.world_width, eng.config.world_height
+    first = None
+    for name, key in (("Prey", "n_prey"), ("Predator", "n_predators"), ("TallLight", "n_lights")):
+        for _ in range(PRED_REF[key]):
+            x, y = eng.rng() * w, eng.rng() * h
+            if name == "Prey" and first is None:
+                first = (x, y)
+            elif name == "Predator" and first is not None:
+                (x, y), first = (first[0] + 5.0, first[1]), None
+            eng.spawn(name, x=x, y=y)
+    calls, emits = [], []
+    fire, emit = eng._fire_collision_tables, eng.emitter.emit_batch
+    hooked = eng._hooked3()
+
+    def recorded_fire(ctx, *tables):
+        # the rows of the hooked kinds: what the hooks see (a chunk's log
+        # leaves the others empty)
+        rows = [[tuple(r) for r in t.tolist()] for t, h in zip(tables, hooked) if h]
+        if any(rows):
+            calls.append(rows)
+        return fire(ctx, *tables)
+
+    def recorded_emit(**kw):
+        emits.append((list(kw["x"]), list(kw["y"])))
+        return emit(**kw)
+
+    eng._fire_collision_tables, eng.emitter.emit_batch = recorded_fire, recorded_emit
+    return eng, calls, emits
+
+
+def event_tables(eng):
+    """The frame's pair table and Enter/Stay/Exit tables, cut to their
+    counts, as lists."""
+    w = eng.world
+    return [getattr(w, t)[:int(getattr(w, c).item())].tolist() for t, c in (
+        ("collision_pairs", "collision_pair_count"), ("event_enter", "event_enter_count"),
+        ("event_stay", "event_stay_count"), ("event_exit", "event_exit_count"))]
+
+
+def events_reference(dev):
+    """The event scene on the card against the CPU, frame by frame."""
+    import numpy as np
+
+    runs = {}
+    for d in (dev, "cpu"):
+        eng, calls, emits = events_scene(d, 1)
+        tables = []
+        for _ in range(PRED_REF_FRAMES):
+            eng.step(1)
+            tables.append(event_tables(eng))
+        runs[str(d)] = (tables, calls, emits, eng.snapshot())
+    (ta, ca, ea, a), (tb, cb, eb, b) = runs[str(dev)], runs["cpu"]
+    tol = PRED_REF_ULPS * float(np.spacing(np.float32(1600.0)))
+    emit_err = max([abs(u - v) for (xa, ya), (xb, yb) in zip(ea, eb)
+                    for u, v in zip(xa + ya, xb + yb)] or [0.0])
+    pos_err = max((a.transform.x - b.transform.x).abs().max().item(),
+                  (a.transform.y - b.transform.y).abs().max().item())
+    p_err = max((getattr(a.particles, f) - getattr(b.particles, f)).abs().max().item()
+                for f in ("x", "y", "z"))
+    canvas = (a.decal_canvas.int() - b.decal_canvas.int()).abs()
+    same_tables = ta == tb
+    stays = sum(len(t[2]) for t in tb)
+    log("events_reference", prey=PRED_REF["n_prey"], frames=PRED_REF_FRAMES,
+        tables_identical=same_tables, hook_calls_identical=ca == cb, dispatches=len(cb),
+        stay_rows=stays, emits=len(eb), emit_max_abs_err=emit_err,
+        particles_active_equal=bool((a.particles.active == b.particles.active).all().item()),
+        live_particles=int(b.particles.active.sum().item()), max_abs_err_vs_cpu=pos_err,
+        particle_max_abs_err=p_err, canvas_max_byte_diff=int(canvas.max().item()), tol=tol)
+    check(same_tables and ca == cb, "events_reference: event tables or hook calls differ")
+    check(stays > 0 and len(eb) > 0, "events_reference: the blood hook never fired")
+    check(len(ea) == len(eb) and emit_err <= tol, f"events_reference: emissions differ by {emit_err}")
+    check(bool((a.particles.active == b.particles.active).all().item()),
+          "events_reference: the live particles differ")
+    check(pos_err <= tol and p_err <= tol,
+          f"events_reference: positions differ by {pos_err}, particles by {p_err}")
+    check(int(canvas.max().item()) <= 1, "events_reference: canvas bytes differ by more than 1")
+
+
+def events_chunk(dev):
+    """The event scene on the card per frame, in chunks of 4, and in
+    chunks of 4 with overlap: the same hook calls and emissions."""
+    runs = {}
+    for chunk, overlap in ((1, False), (4, False), (4, True)):
+        eng, calls, emits = events_scene(dev, chunk, overlap)
+        eng.step(EV_CHUNK_FRAMES)
+        eng.sync()
+        runs[(chunk, overlap)] = (calls, emits)
+    base = runs[(1, False)]
+    same = {f"chunk{c}{'_overlap' if o else ''}": v == base for (c, o), v in runs.items()}
+    log("events_chunk", frames=EV_CHUNK_FRAMES, dispatches=len(base[0]), emits=len(base[1]),
+        identical=json.dumps(same).replace(" ", ""))
+    check(all(same.values()) and base[1], f"events_chunk: hook calls differ: {same}")
+
+
 def halo_boids_phase(dev, errs):
     """The halo benchmark's boids scene on 4 slabs against Engine.step,
     then K3 against its plain version on one slab grid of that run, timed
@@ -1376,6 +1596,12 @@ def main() -> int:
     # 10. slice C2's main path: BASELINE config 4, then the card against the CPU
     k1_pred, k1_pred_timing = predators_phase(dev, errs)
 
+    # 11. slice C3's main path: config 4 with events, then the card against
+    # the CPU and the chunked log against frame-by-frame dispatch
+    k1_events = predators_events_phase(dev)
+    events_reference(dev)
+    events_chunk(dev)
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -1390,7 +1616,8 @@ def main() -> int:
               {"shape": demo_shape, "eager_ms": k1_eager_10k, "shape_1m": big_shape,
                "ms_1m": k1_ms_1m, "plain_ms_1m": k1_plain_1m,
                "bound_ms_1m": bound_1m["K1"][0], "launches_boids_15k": k1_boids,
-               **k1_boids_timing, "launches_predators_15k": k1_pred, **k1_pred_timing}),
+               **k1_boids_timing, "launches_predators_15k": k1_pred, **k1_pred_timing,
+               "launches_predators_events": k1_events}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],

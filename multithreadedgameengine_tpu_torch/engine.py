@@ -10,20 +10,38 @@ One frame (the reference's ``one_step_impl`` with the grid solver,
 engine.py:1460-1824), run eagerly:
 
 1. ``apply_inputs`` writes the mouse as entity 0;
-2. when a ticking class reads neighbours, or shadows are on, the neighbour
-   lists (``ops.spatial.neighbor_lists``, or ``neighbor_lists_by_class``
-   with ``spatial.per_class_assembly``) with the declared payload channels;
-   then ``behavior.run_logic_phase`` runs the ticks;
+2. when a ticking class reads neighbours, shadows are on or collision
+   events are, the neighbour lists (``ops.spatial.neighbor_lists``, or
+   ``neighbor_lists_by_class`` with ``spatial.per_class_assembly``) with the
+   declared payload channels; then ``behavior.run_logic_phase`` runs the
+   ticks;
 3. ``render.extract.advance_animation``, by the registry's frame counts;
 4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver,
    derived properties), or with position residency
    ``ops.physics_grid.resident_persistent_step`` then ``update_derived``;
-5. with a particle pool: ``ops.particles.update_particles``, then
+5. with ``logic.collision_events``: the frame's contact pairs recorded from
+   its neighbour lists (``ops.physics.record_collision_pairs``: per class,
+   over the hooked classes' rows, or over every row) and diffed against the
+   last frame's (``ops.events.diff_pairs``) into the Enter/Stay/Exit tables;
+6. with a particle pool: ``ops.particles.update_particles``, then
    ``ops.decals.stamp_decals``, then the ticks' ``"emit"`` requests
    (``apply_tick_emissions``), then ``ops.culling.update_particle_visibility``;
-6. ``ops.culling.update_entity_visibility``;
-7. with shadows: ``ops.lighting.shadow_sprites`` (or
+7. ``ops.culling.update_entity_visibility``;
+8. with ``logic.screen_events``, the onScreen Enter/Exit difference against
+   the last frame's visibility, packed into one table;
+9. with shadows: ``ops.lighting.shadow_sprites`` (or
    ``shadow_sprites_by_class`` over per-class lists), and the step metrics.
+
+Events reach the host in one of two ways (engine.py:2516-2583). A frame
+stepped alone reads the three event counts (and the screen table) and fires
+the hooks at once: scalar hooks per pair, both orientations in table order,
+``_batch`` hooks once per class (``_fire_collision_tables``). ``step(n)``
+with ``logic.event_chunk > 1`` runs chunks of frames that log every frame's
+tables and their participants' positions into device tensors, copies each
+chunk's log to the host once, and fires the hooks per frame from the copy;
+with ``logic.event_overlap`` a chunk's hooks fire after the next chunk is
+queued, and the held log is flushed at every barrier (``sync``,
+``snapshot``, ``restore``, a plan rebuild).
 
 Host-side, ``Engine.sprites`` is the sprite registry (``assets``) and
 ``Engine.emitter`` the particle emitter (``emitter``), whose queue lands in
@@ -85,7 +103,8 @@ from .ops.culling import update_entity_visibility, update_particle_visibility
 from .ops.decals import canvas_shape, default_decal_textures, stamp_decals, tile_grid_shape
 from .ops.lighting import shadow_sprites, shadow_sprites_by_class
 from .ops.particles import apply_emission, apply_tick_emissions, update_particles
-from .ops.physics import physics_step, update_derived
+from .ops.events import compact_rows, diff_pairs
+from .ops.physics import PER_ENTITY, physics_step, record_collision_pairs, update_derived
 from .ops.physics_grid import (
     bins_expired,
     layout_shape,
@@ -112,11 +131,8 @@ def _refuse(what: str, item: str) -> None:
 
 def _check_supported(cfg: EngineConfig) -> None:
     """Refuse every configuration the ported slice does not run."""
-    ph, lg = cfg.physics, cfg.logic
-    if ph.solver == "neighbors":
+    if cfg.physics.solver == "neighbors":
         _refuse("physics.solver='neighbors'", "slice C, item 12")
-    if lg.collision_events or lg.screen_events:
-        _refuse("logic.collision_events / logic.screen_events", "slice C, item 13")
 
 
 def apply_inputs(world: World, inputs: InputState) -> World:
@@ -153,6 +169,165 @@ class Mouse(EntityClass):
             "collider.is_trigger": True,
             "collider.visual_range": 150.0,
         }
+
+
+class _RowView:
+    """id -> value mapping read as ``view[i]``, so hooks written against the
+    reference's direct SoA reads (``Transform.x[i]``, predator.js:94-125)
+    work on a sparse participant set (engine.py:91-107)."""
+
+    __slots__ = ("_m",)
+
+    def __init__(self, m):
+        self._m = m
+
+    def __getitem__(self, i):
+        return self._m[int(i)]
+
+    def take(self, ids) -> np.ndarray:
+        """Vector read for batch hooks: the values of an array of ids."""
+        m = self._m
+        return np.asarray([m[int(i)] for i in np.asarray(ids).ravel()])
+
+
+class CollisionEventCtx:
+    """The host context handed to collision hooks (engine.py:110-170): the
+    participants' x, y and entity type, and the emitter. Mutations go
+    through the control plane (``engine.emitter``, ``spawn``, ``despawn``)
+    and land before the next frame."""
+
+    def __init__(self, engine: "Engine", participant_ids: np.ndarray):
+        """Read only the participants' rows from the device, in one copy."""
+        self.engine = engine
+        self.emitter = engine.emitter
+        ids = np.unique(np.asarray(participant_ids, np.int64).ravel())
+        ids = ids[ids >= 0]
+        t = engine.world.transform
+        idx = torch.from_numpy(ids).to(engine.device)
+        xs, ys, ts = torch.stack(
+            [t.x[idx], t.y[idx], t.entity_type[idx].to(torch.float32)]).cpu().numpy()
+        self.x = _RowView({int(i): float(v) for i, v in zip(ids, xs)})
+        self.y = _RowView({int(i): float(v) for i, v in zip(ids, ys)})
+        self.entity_type = _RowView({int(i): int(v) for i, v in zip(ids, ts)})
+
+    @classmethod
+    def from_logged(cls, engine: "Engine", rows) -> "CollisionEventCtx":
+        """From one frame's logged tables: ``rows`` is a list of (ids [m, 2],
+        coords [m, 2, 3] (x, y, entity type)) read from a chunk's event log,
+        the positions after that frame. No device read."""
+        self = cls.__new__(cls)
+        self.engine = engine
+        self.emitter = engine.emitter
+        xm: Dict[int, float] = {}
+        ym: Dict[int, float] = {}
+        tm: Dict[int, int] = {}
+        for ids, coords in rows:
+            for i, co in zip(np.asarray(ids).reshape(-1), np.asarray(coords).reshape(-1, 3)):
+                i = int(i)
+                if i >= 0:
+                    xm[i], ym[i], tm[i] = float(co[0]), float(co[1]), int(co[2])
+        self.x, self.y, self.entity_type = _RowView(xm), _RowView(ym), _RowView(tm)
+        return self
+
+    def type_of(self, index: int) -> int:
+        return self.entity_type[index]
+
+
+_COLLISION_HOOKS = ("on_collision_enter", "on_collision_stay", "on_collision_exit")
+
+
+def _hooks(cls, hook_name: str) -> bool:
+    """Whether ``cls`` defines the hook, scalar or ``_batch``."""
+    return (getattr(cls, hook_name, None) is not None
+            or getattr(cls, hook_name + "_batch", None) is not None)
+
+
+#: the "__collision__" channel's value for a neighbour whose collider is
+#: inactive (engine.py:1489); any value above -1e30 is a live collider
+_NO_COLLIDER = -3.0e38
+
+
+class _EventLog:
+    """One chunk's device event log (engine.py:1956-2095): for each logged
+    kind ``(tag, cap, width, hooked)`` of ``specs``, every frame's table
+    ``[k, cap, width]`` int32, its count ``[k]`` and the participants'
+    x, y and entity type after that frame ``[k, cap, width, 3]`` float32.
+    All of it lives in one flat int32 tensor (the coordinates as float32
+    bits), allocated once per chunk and copied to the host once, into
+    pinned memory without blocking on the card; ``tables`` waits for that
+    copy alone. An unhooked kind keeps a one-row placeholder whose count
+    stays 0 and is never written."""
+
+    def __init__(self, specs, k: int, device):
+        self.specs, self.k, self.device = specs, k, device
+        # per kind: the (offset, shape) of its ids, counts and coordinates
+        self._layout = []
+        size = 0
+        for _tag, cap, width, _hooked in specs:
+            parts = []
+            for shape in ((k, cap, width), (k,), (k, cap, width, 3)):
+                parts.append((size, shape))
+                size += math.prod(shape)
+            self._layout.append(parts)
+        self.buf = torch.zeros((size,), dtype=torch.int32, device=device)
+        self.views = self._unpack(self.buf, lambda a: a.view(torch.float32))
+        self.host = None
+        self.ready = None
+
+    def _unpack(self, flat, as_f32):
+        return [(flat[o_ids:o_ids + math.prod(s_ids)].reshape(s_ids),
+                 flat[o_n:o_n + s_n[0]],
+                 as_f32(flat[o_co:o_co + math.prod(s_co)]).reshape(s_co))
+                for (o_ids, s_ids), (o_n, s_n), (o_co, s_co) in self._layout]
+
+    def write(self, world: World, f: int) -> torch.Tensor:
+        """Log frame ``f``'s tables; returns the rows of hooked collision
+        kinds past their cap (the ``event_rows_dropped`` increment)."""
+        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
+        t = world.transform
+        for (tag, cap, _w, hooked), (ids, counts, coords) in zip(self.specs, self.views):
+            if not hooked:
+                continue
+            table, count = _kind_table(world, tag, cap)
+            j = table.clamp(min=0).to(torch.int64)
+            ids[f].copy_(table)
+            counts[f].copy_(torch.clamp(count, max=cap))
+            coords[f].copy_(torch.stack([t.x[j], t.y[j], t.entity_type[j].to(torch.float32)],
+                                        dim=-1))
+            if tag.startswith("event_"):
+                # screen counts are clamped when the table is packed
+                dropped = dropped + torch.clamp(count - cap, min=0)
+        return dropped
+
+    def fetch(self) -> None:
+        """Start the one copy of the log to the host."""
+        if self.device.type == "cuda":
+            self.host = torch.empty(self.buf.shape, dtype=torch.int32, pin_memory=True)
+            self.host.copy_(self.buf, non_blocking=True)
+            self.ready = torch.cuda.Event()
+            self.ready.record()
+        else:
+            self.host = self.buf
+
+    def tables(self):
+        """{tag: (ids, counts, coords)} as numpy, after the copy landed."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        flat = self.host.numpy()
+        unpacked = self._unpack(flat, lambda a: a.view(np.float32))
+        return {spec[0]: kind for spec, kind in zip(self.specs, unpacked)}
+
+
+def _kind_table(world: World, tag: str, cap: int):
+    """(ids [cap, width], count) of a logged kind (engine.py:2005-2017): a
+    collision kind is named after its table in the world."""
+    if tag.startswith("event_"):
+        return getattr(world, tag)[:cap], getattr(world, tag + "_count")
+    packed = world.screen_events_packed
+    full = (packed.shape[0] - 2) // 2
+    if tag == "s_enter":
+        return packed[2:2 + cap, None], packed[0]
+    return packed[2 + full:2 + full + cap, None], packed[1]
 
 
 @dataclasses.dataclass
@@ -205,6 +380,16 @@ class StepPlan:
     #: of channels 3.. in order
     payload_channels: Dict[str, int] = dataclasses.field(default_factory=dict)
     extra_paths: Tuple[str, ...] = ()
+    #: the hook registration the plan was built for (``_events_signature``)
+    events_sig: Any = None
+    #: collision events: hook-scoped recording (engine.py:1368-1387) over
+    #: the (start, count) ranges of the hooked classes, with their per-class
+    #: specs when the lists are assembled per class; whether every contact
+    #: lies in the 3 x 3 cells around a row (``_contact_rows``)
+    scope_hooked: bool = False
+    hooked_ranges: Tuple[Tuple[int, int], ...] = ()
+    hooked_specs: Tuple[Tuple[str, int, int, int], ...] = ()
+    contact_fits: bool = False
 
 
 class Engine:
@@ -273,6 +458,10 @@ class Engine:
         self.total_steps = 0
         # frames that step(n)'s lazy chunk ran without the entity read-back
         self.lazy_frames = 0
+        # the event log of the chunk whose hooks have not fired yet
+        # (logic.event_overlap): held across step() calls until the next
+        # chunk is queued or a barrier flushes it
+        self._pending_log: Optional[_EventLog] = None
 
         # Mouse registered first so entity index 0 is the mouse
         self.register_entity_class(Mouse, 1)
@@ -353,7 +542,7 @@ class Engine:
         n = max(1, self.entity_count)
         cfg = self.config
         decals = cfg.particle.decals and cfg.particle.max_particles > 0
-        lc = cfg.lighting
+        lc, lg = cfg.lighting, cfg.logic
         world = make_world(
             n, self.device, self._custom_components,
             max_particles=cfg.particle.max_particles,
@@ -361,6 +550,8 @@ class Engine:
             decal_tile_shape=tile_grid_shape(cfg) if decals else None,
             n_shadow_sprites=(lc.max_shadow_casting_lights * lc.max_shadows_per_light
                               if lc.enabled and lc.shadows_enabled else 0),
+            max_collision_pairs=cfg.physics.max_collision_pairs if lg.collision_events else 0,
+            n_screen_events=lg.max_screen_events if lg.screen_events else 0,
         )
         # grid-solver bin cache (physics.rebin_interval): installed at init,
         # stamp -1 = never binned
@@ -549,7 +740,9 @@ class Engine:
                 "available": reg.pool.free_count}
 
     def _flush_pending(self) -> None:
-        """Apply queued spawn/despawn writes."""
+        """Apply queued spawn/despawn writes, after the hooks of a held event
+        chunk fire (engine.py:991-1000)."""
+        self._flush_event_log()
         if not self._pending_ops:
             return
         ops, self._pending_ops = self._pending_ops, []
@@ -656,8 +849,9 @@ class Engine:
 
     def _payload_plan(self, cfg: EngineConfig):
         """The union of the ticking classes' declared per-neighbour fields:
-        they ride the neighbour table as channels 3.. after id, x and y
-        (engine.py:1144-1167; the events channel comes with item 13).
+        they ride the neighbour table as channels 3.. after id, x and y,
+        and with collision events the packed ``"__collision__"`` channel
+        that pair recording reads (engine.py:1144-1167).
         Returns (payload_channels, extra_paths)."""
         declared: List[str] = []
         for reg in self.classes.values():
@@ -666,6 +860,8 @@ class Engine:
                     p = FIELD_ALIASES.get(p, p)
                     if p not in declared:
                         declared.append(p)
+        if cfg.logic.collision_events and "__collision__" not in declared:
+            declared.append("__collision__")
         payload_channels = {"transform.x": 1, "transform.y": 2}
         extra_paths = [p for p in declared if p not in payload_channels]
         for k, p in enumerate(extra_paths):
@@ -674,33 +870,38 @@ class Engine:
 
     def _ticks_read_neighbors(self) -> bool:
         """Whether a registered class ticks and reads its neighbour lists
-        (engine.py:1248-1260; shadows are the frame's other reason to build
-        lists here, events and the neighbour-list solver being refused)."""
+        (engine.py:1248-1260; shadows and collision events are the frame's
+        other reasons to build lists, the neighbour-list solver being
+        refused)."""
         return any(reg.count > 0 and _tick_fn(reg.cls) is not None and reg.cls.uses_neighbors
                    for reg in self.classes.values())
 
-    def _neighbor_specs(self, cfg: EngineConfig, shadows_on: bool):
-        """Per-class assembly (engine.py:1396-1438, without the hooked
-        classes of item 13): each class that ticks on its neighbours, and
-        with shadows each class that declares LightEmitter, scans ceil(its
+    def _neighbor_specs(self, cfg: EngineConfig, shadows_on: bool, scope_hooked: bool):
+        """Per-class assembly (engine.py:1396-1438): each class that ticks on
+        its neighbours, with shadows each class that declares LightEmitter,
+        and with hook-scoped recording each hooked class, scans ceil(its
         largest visual range / cell) cells, capped at the global radius.
-        Returns (specs, light ranges)."""
+        Returns (specs, light ranges, hooked specs)."""
         vr = self.world.collider.visual_range.cpu().numpy()
-        specs, lights = [], []
+        specs, lights, hooked = [], [], []
         for reg in self.classes.values():
             if reg.count == 0:
                 continue
             ticks_nbr = _tick_fn(reg.cls) is not None and reg.cls.uses_neighbors
             is_light = shadows_on and LightEmitter in reg.cls.collect_components()
-            if not (ticks_nbr or is_light):
+            is_hooked = scope_hooked and self._class_has_hooks(reg.cls)
+            if not (ticks_nbr or is_light or is_hooked):
                 continue
             s, c = reg.start_index, reg.count
             vr_c = float(vr[s:s + c].max())
             r_c = max(1, math.ceil(vr_c / cfg.spatial.cell_size)) if vr_c > 0 else 1
-            specs.append((reg.cls.__name__, s, c, min(r_c, max(1, cfg.spatial.max_cell_radius))))
+            spec = (reg.cls.__name__, s, c, min(r_c, max(1, cfg.spatial.max_cell_radius)))
+            specs.append(spec)
             if is_light:
                 lights.append((reg.cls.__name__, s, c))
-        return tuple(specs), tuple(lights)
+            if is_hooked:
+                hooked.append(spec)
+        return tuple(specs), tuple(lights), tuple(hooked)
 
     def _solver_plan(self, cfg: EngineConfig):
         """The grid solver's geometry from the registered radii, and solver
@@ -757,7 +958,10 @@ class Engine:
         (engine.py:1169-1354): the geometry; solver "auto" as "pallas" (the
         resident solver, as the reference picks it on its accelerator); the
         pair kernel; the solver caches, installed at the layout's shape with
-        their stamps reset so the next frame rebins; residency; the band."""
+        their stamps reset so the next frame rebins; residency; the band;
+        the neighbour lists and the scope of pair recording. A held event
+        chunk's hooks fire first."""
+        self._flush_event_log()
         cfg, geom, _forced = self._solver_plan(self._resolve_spatial())
         if geom is None:
             _refuse("a scene with no collider radius (neighbour-list solver)",
@@ -799,11 +1003,21 @@ class Engine:
         self.world = w
         residency = specs is not None
         shadows_on = cfg.lighting.enabled and cfg.lighting.shadows_enabled
-        # shadow sprites walk each light's neighbour list (engine.py:1249-1253)
-        need_neighbors = self._ticks_read_neighbors() or shadows_on
-        nbr_specs, light_ranges = (), ()
-        if need_neighbors and cfg.spatial.per_class_assembly and cfg.spatial.method != "bruteforce":
-            nbr_specs, light_ranges = self._neighbor_specs(cfg, shadows_on)
+        lg = cfg.logic
+        # shadow sprites walk each light's neighbour list, pair recording
+        # reads every row's (engine.py:1249-1253)
+        need_neighbors = self._ticks_read_neighbors() or shadows_on or lg.collision_events
+        # hook-scoped recording: only the hooked classes' rows record
+        # pairs (cfg.logic.record_all_pairs; engine.py:1368-1387)
+        hooked_ranges = tuple((reg.start_index, reg.count) for reg in self.classes.values()
+                              if reg.count > 0 and self._class_has_hooks(reg.cls))
+        scope_hooked = lg.collision_events and not lg.record_all_pairs and bool(hooked_ranges)
+        nbr_specs, light_ranges, hooked_specs = (), (), ()
+        if (need_neighbors and cfg.spatial.per_class_assembly
+                and cfg.spatial.method != "bruteforce"
+                and (not lg.collision_events or scope_hooked)):
+            nbr_specs, light_ranges, hooked_specs = self._neighbor_specs(
+                cfg, shadows_on, scope_hooked)
         has_particles = cfg.particle.max_particles > 0
         decals_on = has_particles and cfg.particle.decals
         payload_channels, extra_paths = self._payload_plan(cfg)
@@ -833,7 +1047,14 @@ class Engine:
             decal_textures=(default_decal_textures(len(self.sprites.textures), dev)
                             if decals_on else None),
             shadows_on=shadows_on,
-            lazy_chunks=residency and not (need_neighbors or has_particles),
+            lazy_chunks=residency and not (need_neighbors or has_particles or lg.screen_events),
+            events_sig=self._events_signature(),
+            scope_hooked=scope_hooked,
+            hooked_ranges=hooked_ranges,
+            hooked_specs=hooked_specs,
+            # a contact is closer than 2 r_max (engine.py:1559-1563)
+            contact_fits=(2.0 * max(self._max_radius, self._solver_radius_bound)
+                          <= cfg.spatial.cell_size),
         )
 
     def _one_step(self, world: World, inputs: InputState) -> Tuple[World, Dict[str, torch.Tensor]]:
@@ -842,7 +1063,8 @@ class Engine:
         world = apply_inputs(world, inputs)
         if plan.need_neighbors:  # the frame's neighbour block (engine.py:1472-1518)
             t, c = world.transform, world.collider
-            extras = tuple(read_field(world, p) for p in plan.extra_paths)
+            extras = tuple(self._collision_channel(world) if p == "__collision__"
+                           else read_field(world, p) for p in plan.extra_paths)
             if plan.nbr_specs:
                 nbr, n_binned = neighbor_lists_by_class(
                     t.x, t.y, t.active, c.visual_range, cfg, extras, plan.nbr_specs)
@@ -859,6 +1081,8 @@ class Engine:
                 light_nbr = [(s, c, nbr[name]) for name, s, c in plan.light_ranges]
             else:
                 light_nbr = nbr.replace(payload=None)
+        if cfg.logic.collision_events:  # what pair recording reads of the lists
+            contact_rows = self._contact_rows(nbr)
         # the candidate rows (288 MB on boids_15k) go before the solver runs
         del nbr
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
@@ -871,6 +1095,19 @@ class Engine:
         else:
             world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom)
             band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
+        if cfg.logic.collision_events:
+            # contact pairs from the frame-start lists, the one-frame-stale
+            # set the reference's logic workers read (logic_worker.js:429-443),
+            # then the Enter/Stay/Exit difference against the last frame's
+            world, pairs_dropped = self._record_pairs(world, *contact_rows)
+            enter, n_e, stay, n_s, exit_, n_x = diff_pairs(
+                world.collision_pairs, world.collision_pair_count,
+                world.prev_collision_pairs, world.prev_collision_pair_count)
+            world = world.replace(
+                prev_collision_pairs=world.collision_pairs,
+                prev_collision_pair_count=world.collision_pair_count,
+                event_enter=enter, event_enter_count=n_e, event_stay=stay,
+                event_stay_count=n_s, event_exit=exit_, event_exit_count=n_x)
         p_active = torch.full((), -1, dtype=torch.int32, device=self.device)
         if plan.has_particles:  # the particle worker's phases (engine.py:1714-1741)
             pool, stamps, p_active = update_particles(
@@ -889,6 +1126,19 @@ class Engine:
                 p_active = p_active + spawned
             world = update_particle_visibility(world, cfg, inputs)
         world = update_entity_visibility(world, cfg, inputs)
+        if cfg.logic.screen_events:  # onScreen Enter/Exit (engine.py:1751-1776)
+            cur = world.sprite.is_on_screen & world.transform.active
+            prev = world.prev_onscreen
+            cap_s = cfg.logic.max_screen_events
+            gid = torch.arange(world.n_entities, dtype=torch.int32, device=self.device)
+
+            def compact_ids(mask):
+                return (compact_rows(mask, gid, cap_s),
+                        torch.clamp(torch.sum(mask, dtype=torch.int32), max=cap_s))
+
+            (se_tbl, se_n), (sx_tbl, sx_n) = compact_ids(cur & ~prev), compact_ids(~cur & prev)
+            world = world.replace(prev_onscreen=cur, screen_events_packed=torch.cat(
+                [se_n[None], sx_n[None], se_tbl, sx_tbl]))
         if plan.shadows_on:  # with this frame's visibility (engine.py:1778-1798)
             world = world.replace(shadow_sprites=(
                 shadow_sprites_by_class(world, light_nbr, cfg) if plan.nbr_specs
@@ -912,7 +1162,97 @@ class Engine:
             # the px/py bounce band (0 in healthy runs)
             "boundary_band_drift": band_drift,
         }
+        if cfg.logic.collision_events:
+            metrics["collision_pair_count"] = world.collision_pair_count
+            # pairs lost to the per-row cap or to max_collision_pairs
+            metrics["collision_pairs_dropped"] = pairs_dropped
         return world, metrics
+
+    def _collision_channel(self, world: World) -> torch.Tensor:
+        """The packed ``"__collision__"`` payload channel (engine.py:
+        1475-1490): an active collider's radius, or ``-radius - 1`` for a
+        class without hooks under hook-scoped recording; an inactive one
+        ``_NO_COLLIDER``. All float32, as the reference compares it."""
+        c = world.collider
+        enc = c.radius
+        if self._plan.scope_hooked:
+            enc = -enc - 1.0
+            for s, n in self._plan.hooked_ranges:
+                enc[s:s + n] = c.radius[s:s + n]
+        return torch.where(c.active, enc, _NO_COLLIDER)
+
+    def _contact_rows(self, nbr):
+        """The candidate rows pair recording reads, taken from this frame's
+        lists before they are freed (engine.py:1549-1682): (ids, d2, the
+        ``"__collision__"`` channel, the rows' entity ids or None when row r
+        is entity r, the (start, count) ranges the rows were cut from or
+        None). Per class, each hooked class's own lists, padded to the
+        widest and concatenated in registration order; hook-scoped over the
+        global lists, the hooked classes' rows; else every row.
+
+        When the scan radius is above 1 and every contact lies within the
+        3 x 3 cells around a row (2 r_max <= cell), only those 9 of the
+        ``(2R+1)^2`` candidate cells are kept: static slices in scan order,
+        as ``_contact_subset`` takes them."""
+        plan = self._plan
+        cfg = plan.cfg
+        ch = plan.payload_channels["__collision__"]
+        capk = cfg.spatial.cell_capacity
+
+        def cut(lists, scan_r, ranges=None):
+            cols = [lists.ids, lists.d2, lists.payload.data[..., ch]]
+            if ranges is not None:  # the hooked classes' rows
+                cols = [torch.cat([a[s:s + n] for s, n in ranges]) for a in cols]
+            if scan_r > 1 and plan.contact_fits and cols[0].shape[1] == (2 * scan_r + 1) ** 2 * capk:
+                w = 2 * scan_r + 1
+                # rows dr = -1, 0, 1 of the scan, each 3 cells (dc = -1..1) long
+                starts = [((dr + scan_r) * w + scan_r - 1) * capk for dr in (-1, 0, 1)]
+                return [torch.cat([a[:, s:s + 3 * capk] for s in starts], dim=1) for a in cols]
+            return [a.contiguous() for a in cols]
+
+        def pad(a, width, fill):
+            return torch.nn.functional.pad(a, (0, width - a.shape[1]), value=fill)
+
+        def arange_rows(ranges):
+            return torch.cat([torch.arange(s, s + n, dtype=torch.int32, device=self.device)
+                              for s, n in ranges])
+
+        if plan.nbr_specs:  # per class: scope_hooked holds (the plan's rule)
+            parts = [cut(nbr[name], r_c) for name, _s, _c, r_c in plan.hooked_specs]
+            width = max(p[0].shape[1] for p in parts)
+            ids, d2, chv = (torch.cat([pad(p[k], width, fill) for p in parts])
+                            for k, fill in ((0, -1), (1, 0.0), (2, _NO_COLLIDER)))
+            ranges = tuple((s, n) for _name, s, n, _r in plan.hooked_specs)
+            return ids, d2, chv, arange_rows(ranges), ranges
+        if plan.scope_hooked:
+            ranges = plan.hooked_ranges
+            ids, d2, chv = cut(nbr, cfg.spatial.max_cell_radius, ranges)
+            return ids, d2, chv, arange_rows(ranges), ranges
+        ids, d2, chv = cut(nbr, cfg.spatial.max_cell_radius)
+        return ids, d2, chv, None, None
+
+    def _record_pairs(self, world: World, ids, d2, chv, row_ids, ranges):
+        """The recording mask over the rows of ``_contact_rows`` against
+        this frame's post-physics world, then the compaction
+        (engine.py:1587-1682). Hook-scoped, a pair with one hooked side is
+        recorded from that side and a pair of two hooked sides from the
+        smaller index; else from the smaller index."""
+        t, c = world.transform, world.collider
+        self_ok, radius = t.active & c.active, c.radius
+        if ranges is not None:
+            self_ok, radius = (torch.cat([a[s:s + n] for s, n in ranges])
+                               for a in (self_ok, radius))
+            hooked_j = chv >= 0
+            r_j = torch.where(hooked_j, chv, -chv - 1.0)
+            once = torch.where(hooked_j, ids > row_ids[:, None], True)
+        else:
+            r_j = chv
+            once = ids > torch.arange(world.n_entities, dtype=torch.int32,
+                                      device=self.device)[:, None]
+        ok = self_ok[:, None] & (ids >= 0) & (chv > -1.0e30)
+        min_d = radius[:, None] + r_j
+        rec = ok & (d2 < min_d * min_d) & once
+        return record_collision_pairs(world, ids, rec, row_ids)
 
     def _lazy_frame(self, world: World, inputs: InputState):
         """A mid-chunk frame of the lazy-readback chunk (engine.py:1877-1888):
@@ -939,10 +1279,30 @@ class Engine:
         order synced from the layout, then the eager frame) when it is the
         call's last, the layout is stale or the bins have expired; every
         other frame runs in the layout alone. ``boundary_band_drift`` is then
-        the chunk's maximum. Bit-exact with ``n`` single steps."""
+        the chunk's maximum. Bit-exact with ``n`` single steps.
+
+        With collision or screen events and ``n > 1`` (engine.py:2533-2554),
+        ``logic.event_chunk > 1`` runs the chunked event log
+        (``_step_events_chunked``); otherwise the frames run one
+        ``step(1)`` at a time, each dispatching its events, so no
+        transition is lost. A frame stepped alone reads its event counts
+        and fires the hooks after it."""
         self._require_init()
         if n <= 0:
             return self.metrics
+        self._check_events_rebuild()
+        lg = self.config.logic
+        if (lg.collision_events or lg.screen_events) and n > 1:
+            if lg.event_chunk > 1:
+                if self._plan is None:
+                    self._plan = self._build_plan()
+                metrics = self._step_events_chunked(n)
+            else:
+                for _ in range(n):
+                    metrics = self.step(1)
+            if block:
+                self.sync()
+            return metrics
         # the plan is built before the queued writes land, as the reference
         # builds its step before flushing (engine.py:2555-2558): the first
         # step's geometry sees the spawns' radii only through _max_radius
@@ -977,10 +1337,232 @@ class Engine:
             self.sync()
         self._step_seconds.append((time.perf_counter() - t0) / n)
         self.total_steps += n
+        if lg.collision_events:
+            self._dispatch_collision_events()
+        if lg.screen_events:
+            self._dispatch_screen_events()
         return metrics
 
+    # ------------------------------------------------------------------
+    # the chunked event log (engine.py:1956-2319)
+    # ------------------------------------------------------------------
+    def _log_specs(self):
+        """(tag, cap, width, hooked) of each logged kind (engine.py:
+        1976-2003): the collision Enter/Stay/Exit pair tables, capped at
+        ``min(max_events_per_frame, max_collision_pairs)`` and, under
+        hook-scoped recording, at the hooked rows x ``PER_ENTITY``; the
+        onScreen Enter/Exit id tables at ``max_screen_events``. A kind that
+        no class hooks is a one-row placeholder."""
+        lg = self.config.logic
+        specs = []
+        if lg.collision_events:
+            cap = min(lg.max_events_per_frame, self.config.physics.max_collision_pairs)
+            if not lg.record_all_pairs:
+                n_hooked = sum(reg.count for reg in self.classes.values()
+                               if reg.count > 0 and self._class_has_hooks(reg.cls))
+                if n_hooked:
+                    cap = min(cap, n_hooked * PER_ENTITY)
+            for tag, hooked in zip(("event_enter", "event_stay", "event_exit"), self._hooked3()):
+                specs.append((tag, cap if hooked else 1, 2, hooked))
+        if lg.screen_events:
+            for tag, hooked in zip(("s_enter", "s_exit"), self._screen_hooked2()):
+                specs.append((tag, lg.max_screen_events if hooked else 1, 1, hooked))
+        return tuple(specs)
+
+    def _step_events_chunked(self, n: int) -> Dict[str, torch.Tensor]:
+        """``step(n)`` through the device event log (engine.py:2189-2258):
+        chunks of up to ``logic.event_chunk`` frames, each logging every
+        frame's tables and participants (``_EventLog``) with no host read
+        inside the chunk, then one copy to the host a chunk. With
+        ``logic.event_overlap`` the hooks of a chunk fire after the next
+        chunk is queued, so the copy and the hook bodies overlap the card's
+        work; the last chunk's log is held across ``step`` calls until the
+        next chunk or a barrier (``_flush_event_log``)."""
+        # the held chunk is taken first: _flush_pending would fire it here
+        # and lose the overlap across calls
+        held, self._pending_log = self._pending_log, None
+        self._flush_pending()
+        if self._plan is None:  # the flush wrote a radius above the bound
+            self._plan = self._build_plan()
+        self._flush_emissions()
+        inputs = self.input.snapshot(self.device)
+        has_hooks = self._has_collision_hooks() or any(self._screen_hooked2())
+        specs = self._log_specs()
+        overlap = self.config.logic.event_overlap
+        pending = held
+        metrics = self.metrics
+        remaining = n
+        t0 = time.perf_counter()
+        while remaining > 0:
+            k = min(self.config.logic.event_chunk, remaining)
+            remaining -= k
+            log = _EventLog(specs, k, self.device)
+            world = self.world
+            dropped = torch.zeros((), dtype=torch.int32, device=self.device)
+            for f in range(k):
+                world, metrics = self._one_step(world, inputs)
+                dropped = dropped + log.write(world, f)
+                # rows past the log's cap never reach a hook: counted over
+                # the chunk
+                metrics["event_rows_dropped"] = dropped
+            self.world, self.metrics = world, metrics
+            if not has_hooks:
+                continue
+            log.fetch()
+            if overlap:
+                if pending is not None:
+                    self._dispatch_logged_events(pending)
+                pending = log
+            else:
+                self._dispatch_logged_events(log)
+        self._pending_log = pending
+        self._step_seconds.append((time.perf_counter() - t0) / n)
+        self.total_steps += n
+        return metrics
+
+    def _flush_event_log(self) -> None:
+        """Fire the held chunk's hooks (logic.event_overlap) at a barrier
+        that observable state must reflect (engine.py:2260-2273)."""
+        pending, self._pending_log = self._pending_log, None
+        if pending is not None:
+            self._dispatch_logged_events(pending)
+
+    def _dispatch_logged_events(self, log: "_EventLog") -> None:
+        """Read a chunk's log from its host copy and fire each frame's hooks
+        (engine.py:2275-2319): collision kinds through
+        ``CollisionEventCtx.from_logged``, screen kinds per id. The hooks'
+        spawns, despawns and emissions land before the next chunk."""
+        by_tag = log.tables()
+        if any(int(counts.sum()) for _ids, counts, _co in by_tag.values()):
+            for f in range(log.k):
+                if "event_enter" in by_tag:
+                    (enter, n_e, e_co), (stay, n_s, s_co), (exit_, n_x, x_co) = (
+                        by_tag["event_enter"], by_tag["event_stay"], by_tag["event_exit"])
+                    ce, cs, cx = int(n_e[f]), int(n_s[f]), int(n_x[f])
+                    if ce or cs or cx:
+                        ctx = CollisionEventCtx.from_logged(self, [
+                            (enter[f, :ce], e_co[f, :ce]), (stay[f, :cs], s_co[f, :cs]),
+                            (exit_[f, :cx], x_co[f, :cx])])
+                        self._fire_collision_tables(ctx, enter[f, :ce], stay[f, :cs],
+                                                    exit_[f, :cx])
+                if "s_enter" in by_tag:
+                    (s_en, n_se, _), (s_ex, n_sx, _) = by_tag["s_enter"], by_tag["s_exit"]
+                    cse, csx = int(n_se[f]), int(n_sx[f])
+                    if cse or csx:
+                        self._fire_screen_tables(s_en[f, :cse, 0], s_ex[f, :csx, 0])
+        self._flush_pending()
+        self._flush_emissions()
+
+    # ------------------------------------------------------------------
+    # event dispatch (logic_worker.js:417-554)
+    # ------------------------------------------------------------------
+    def _dispatch_collision_events(self) -> None:
+        """A frame stepped alone: read its three event counts, then the
+        rows they cover, and fire the hooks (engine.py:2694-2717)."""
+        if not self._has_collision_hooks():
+            return
+        w = self.world
+        n_e, n_s, n_x = torch.stack(
+            [w.event_enter_count, w.event_stay_count, w.event_exit_count]).tolist()
+        if not (n_e or n_s or n_x):
+            return
+        tables = torch.stack([w.event_enter, w.event_stay, w.event_exit])
+        tables = tables[:, :max(n_e, n_s, n_x)].cpu().numpy()
+        enters, stays, exits = tables[0, :n_e], tables[1, :n_s], tables[2, :n_x]
+        ctx = CollisionEventCtx(self, np.concatenate([enters, stays, exits]))
+        self._fire_collision_tables(ctx, enters, stays, exits)
+
+    def _dispatch_screen_events(self) -> None:
+        """A frame stepped alone: read the packed onScreen table and fire
+        the hooks (engine.py:2628-2643). The last frame's mask starts all
+        False, so an entity's first visible frame fires Enter."""
+        if not any(self._screen_hooked2()):
+            return
+        packed = self.world.screen_events_packed.cpu().numpy()
+        cap_s = (packed.size - 2) // 2
+        n_e, n_x = int(packed[0]), int(packed[1])
+        if n_e or n_x:
+            self._fire_screen_tables(packed[2:2 + n_e], packed[2 + cap_s:2 + cap_s + n_x])
+
+    def _fire_screen_tables(self, entered, exited) -> None:
+        for indices, hook_name in ((entered, "on_screen_enter"), (exited, "on_screen_exit")):
+            for i in indices:
+                hook = getattr(self._class_of_index(int(i)).cls, hook_name, None)
+                if hook is not None:
+                    hook(int(i))
+
+    def _screen_hooked2(self) -> Tuple[bool, bool]:
+        """Which of (screen enter, screen exit) some class hooks."""
+        return tuple(any(getattr(reg.cls, h, None) is not None for reg in self.classes.values())
+                     for h in ("on_screen_enter", "on_screen_exit"))
+
+    def _has_collision_hooks(self) -> bool:
+        return any(self._hooked3())
+
+    def _hooked3(self) -> Tuple[bool, bool, bool]:
+        """Which of (enter, stay, exit) some class hooks, scalar or
+        ``_batch`` (engine.py:2722-2732)."""
+        return tuple(any(_hooks(reg.cls, h) for reg in self.classes.values())
+                     for h in _COLLISION_HOOKS)
+
+    @staticmethod
+    def _class_has_hooks(cls) -> bool:
+        return any(_hooks(cls, h) for h in _COLLISION_HOOKS)
+
+    def _events_signature(self):
+        """What the plan derives from hook registration: the hooked kinds
+        (the log's tables) and the hooked classes (the recording scope)."""
+        return (self._hooked3(), self._screen_hooked2(),
+                tuple(name for name, reg in self.classes.items()
+                      if reg.count > 0 and self._class_has_hooks(reg.cls)))
+
+    def _check_events_rebuild(self) -> None:
+        """Re-plan when hooks were added or removed after the plan was built,
+        so a late hook fires (engine.py:2757-2769)."""
+        lg = self.config.logic
+        if ((lg.collision_events or lg.screen_events) and self._plan is not None
+                and self._plan.events_sig != self._events_signature()):
+            self._plan = None
+
+    def _fire_collision_tables(self, ctx, enters, stays, exits) -> None:
+        """Fire the collision hooks for one frame's tables (engine.py:
+        2771-2817). Scalar hooks fire per row in table order with both
+        orientations interleaved, (a0, b0), (b0, a0), (a1, b1), ..., the
+        reference's per-pair loop (logic_worker.js:429-526), whatever the
+        classes. A class with ``on_collision_<kind>_batch(ctx, me, other)``
+        gets one call with all its ``me`` rows in table order; batch calls
+        go class by class in registration order."""
+
+        def fire(pairs: np.ndarray, hook_name: str) -> None:
+            p = np.asarray(pairs, np.int64).reshape(-1, 2)
+            if p.shape[0] == 0:
+                return
+            me = p[:, [0, 1]].reshape(-1)
+            other = p[:, [1, 0]].reshape(-1)
+            scalar_rows = np.zeros(me.shape[0], dtype=bool)
+            for reg in self.classes.values():
+                batch = getattr(reg.cls, hook_name + "_batch", None)
+                hook = getattr(reg.cls, hook_name, None)
+                if batch is None and hook is None:
+                    continue
+                sel = (me >= reg.start_index) & (me < reg.start_index + reg.count)
+                if batch is not None:
+                    if sel.any():
+                        batch(ctx, me[sel], other[sel])
+                else:
+                    scalar_rows |= sel
+            for k in np.flatnonzero(scalar_rows):
+                m = int(me[k])
+                getattr(self._class_of_index(m).cls, hook_name)(ctx, m, int(other[k]))
+
+        fire(enters, "on_collision_enter")
+        fire(stays, "on_collision_stay")
+        fire(exits, "on_collision_exit")
+
     def sync(self) -> None:
-        """Wait for all queued device work."""
+        """Fire a held event chunk's hooks, then wait for all queued device
+        work."""
+        self._flush_event_log()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -18,7 +18,7 @@ import torch
 
 from .components import BUILTIN_COMPONENTS, Particles, ShadowSprites, define_component
 from .config import EngineConfig, make_config
-from .state import World
+from .state import EVENT_TABLES, World
 
 _NP_DTYPE = {
     torch.float32: np.float32,
@@ -92,10 +92,12 @@ def world_from_jax(np_world, device, geom=None) -> World:
     bool as they are), and a non-empty shadow-sprite buffer as it is; the
     reference's empty pools and placeholder tables, of a world without
     those features, are left behind (the port holds None there), and so is
-    its PRNG key, which the port has no user of. Reference state the port
-    does not run yet (the screen-event tables) must be absent."""
-    if getattr(np_world, "prev_onscreen", None) is not None:
-        raise NotImplementedError("World.prev_onscreen set: not ported to PyTorch yet")
+    its PRNG key, which the port has no user of. The collision-event
+    tables (this frame's and the last frame's pairs, the Enter/Stay/Exit
+    tables, their counts) come across when the reference allocated them
+    (``logic.collision_events``), and so do the on-screen mask and the
+    packed screen-event table (``logic.screen_events``): a run stopped in
+    the middle of a contact goes on in the port with the same events."""
 
     def convert(cls, src):
         return cls(**{
@@ -140,5 +142,11 @@ def world_from_jax(np_world, device, geom=None) -> World:
         extra["decal_dirty"] = torch.from_numpy(np.array(np_world.decal_dirty)).to(device)
     if np.asarray(np_world.shadow_sprites.x).size:
         extra["shadow_sprites"] = convert(ShadowSprites, np_world.shadow_sprites)
+    names = ([n for pair in EVENT_TABLES for n in pair]
+             if np.asarray(np_world.prev_collision_pairs).size else [])
+    if getattr(np_world, "prev_onscreen", None) is not None:
+        names += ["prev_onscreen", "screen_events_packed"]
+    for name in names:
+        extra[name] = torch.from_numpy(np.array(getattr(np_world, name))).to(device)
     return World(**comps, step_count=int(np.asarray(np_world.step_count)), custom=custom,
                  **solver, **extra)

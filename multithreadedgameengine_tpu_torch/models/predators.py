@@ -12,8 +12,8 @@ Prey and Predator are the port's batched Boid (``models/boids.py``) with
 their own neighbour hooks: the ticks reduce the ``[count, S]`` flocking
 intermediates of :class:`~.boids.FlockAux` along the slots. The class
 attributes ``ANIM_TABLE`` hold each class's ``[3 states, 4 directions]``
-animation table (a host tensor, set by :func:`make_predators_engine`, as
-the reference sets them) and go to the tick's device each frame.
+animation table (set by :func:`make_predators_engine` on the engine's
+device, as the reference sets them; a tick on another device copies it).
 """
 
 from __future__ import annotations
@@ -171,8 +171,8 @@ class Prey(Boid):
 
 class Predator(Boid):
     """predator.js: hunts the closest prey; blood particles on contact (the
-    onCollisionStay emitter, predator.js:94-125, which needs the collision
-    events of ROADMAP slice C, item 13, to fire)."""
+    onCollisionStay emitter, predator.js:94-125), which fires with
+    ``logic.collision_events`` on."""
 
     components = [*Boid.components, PredatorBehavior]
 
@@ -383,8 +383,10 @@ def make_predators_engine(
     eng.register_entity_class(Prey, n_prey)
     eng.register_entity_class(Predator, n_predators)
     eng.register_entity_class(TallLight, n_lights)
-    Prey.ANIM_TABLE = build_anim_table(eng.sprites, "civil1")
-    Predator.ANIM_TABLE = build_anim_table(eng.sprites, "civil3")
+    # on the engine's device: a host table would be copied to the card, and
+    # waited for, every frame
+    Prey.ANIM_TABLE = build_anim_table(eng.sprites, "civil1").to(eng.device)
+    Predator.ANIM_TABLE = build_anim_table(eng.sprites, "civil3").to(eng.device)
     eng.init()
     if spawn:
         w, h = eng.config.world_width, eng.config.world_height

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/ops/physics.py``
 (physics.py:49-130, 285-424): ``verlet_move`` (moveBallsVerlet), the one-axis
-``_boundary`` clamp and bounce, ``update_derived`` (speed and velocity angle)
-and the grid branch of ``physics_step``. The constraint pass itself is the
+``_boundary`` clamp and bounce, ``update_derived`` (speed and velocity angle),
+the grid branch of ``physics_step``, and the collision-pair recording for
+the Enter/Stay/Exit events (``PER_ENTITY``, ``record_collision_pairs``,
+``compact_pairs``). The constraint pass itself is the
 grid solver in ``ops/physics_grid.py``; the neighbour-list solver
 (``solver="neighbors"``) is not ported yet and is refused.
 
@@ -21,8 +23,15 @@ import torch
 
 from ..config import EngineConfig
 from ..state import World
+from .events import compact_rows
+from .particles import first_k_where
 
 _U32 = 0xFFFFFFFF
+
+#: per-row cap of the pair-recording prefilter (physics.py:46): it also
+#: bounds the pairs one entity adds to a frame, which sizes the chunked
+#: event log under hook-scoped recording
+PER_ENTITY = 16
 
 
 def _sqrt(t: torch.Tensor) -> torch.Tensor:
@@ -136,6 +145,49 @@ def update_derived(world: World, cfg: EngineConfig) -> World:
             ),
         )
     )
+
+
+def record_collision_pairs(
+    world: World, ids: torch.Tensor, rec: torch.Tensor,
+    row_ids: "torch.Tensor | None" = None,
+) -> Tuple[World, torch.Tensor]:
+    """Compact a recording mask into the world's ``[max_pairs, 2]`` pair
+    table (the collisionData analog, physics_worker.js:444, :501-505;
+    physics.py:303-334). ``ids``/``rec`` are ``[R, S]`` neighbour ids and
+    the pairs to record, with the pair-once rule already applied by the
+    caller; ``row_ids`` maps rows to entity ids when the rows are a subset
+    of the world (None: row r is entity r). Returns (world, dropped)."""
+    pairs, count, dropped = compact_pairs(ids, rec, world.collision_pairs.shape[0], row_ids)
+    return world.replace(collision_pairs=pairs, collision_pair_count=count), dropped
+
+
+def compact_pairs(
+    ids: torch.Tensor, rec: torch.Tensor, max_pairs: int,
+    row_ids: "torch.Tensor | None" = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The compaction core of :func:`record_collision_pairs`
+    (physics.py:337-369): each row's first ``PER_ENTITY`` recorded slots,
+    then a ``cumsum`` rank scatter into a dense ``[max_pairs, 2]`` table
+    padded with -1. Returns (pairs, count, dropped); ``dropped`` counts the
+    pairs lost to the per-row cap or to ``max_pairs``.
+
+    The reference takes the per-row slots with ``lax.top_k`` on a 0/1 key,
+    which returns equal values lower index first: the first recorded slots
+    in order, then the first unrecorded ones. ``first_k_where`` is that
+    selection as a stable sort (``torch.topk`` promises no order among
+    ties)."""
+    r, s = ids.shape
+    total = torch.sum(rec, dtype=torch.int32)
+    p = min(PER_ENTITY, s)
+    sel = first_k_where(rec, p, dim=1)  # [R, p]
+    flat_j = torch.gather(ids, 1, sel).reshape(-1)
+    flat_rec = torch.gather(rec, 1, sel).reshape(-1)
+    i_rows = (torch.arange(r, dtype=torch.int32, device=ids.device)
+              if row_ids is None else row_ids.to(torch.int32))
+    flat_i = i_rows[:, None].expand(r, p).reshape(-1)
+    pairs = compact_rows(flat_rec, torch.stack([flat_i, flat_j], dim=1), max_pairs)
+    count = torch.clamp(torch.sum(flat_rec, dtype=torch.int32), max=max_pairs)
+    return pairs, count, total - count
 
 
 def physics_step(

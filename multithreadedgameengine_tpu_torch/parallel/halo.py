@@ -40,9 +40,10 @@ Under phase A a tick's ``ctx.world`` holds the slab's routed rows, as in
 the reference, and ``ctx.gather`` resolves a path against the home chunks'
 frame-start fields in global-id order (halo.py:664-672).
 
-Not ported yet, and refused: collision events (ROADMAP slice C, item 13)
-and, under this step, particles, decals and lighting (the mixed passes of
-item 14, which ``Engine.step`` runs on one device); the chunk's input
+Not ported yet under this step, and refused: collision and screen events
+(per-slab pair recording, with the mixed passes of ROADMAP slice C, item
+14), particles, decals and lighting (the mixed passes of item 14);
+``Engine.step`` runs them all on one device. The chunk's input
 timeline is a list of ``InputState``. ``check_vma`` is an XLA-only knob
 and is not ported.
 """
@@ -561,7 +562,10 @@ def make_halo_step(engine, mesh: SlabMesh, oversub: float = 4.0, chunk_steps: in
         raise ValueError("halo step requires spatial.method='grid'")
     if cfg.physics.solver == "neighbors":
         raise ValueError("halo step requires the grid constraint solver")
-    _check_supported(cfg)  # events and the neighbour-list solver
+    _check_supported(cfg)  # the neighbour-list solver
+    if cfg.logic.collision_events or cfg.logic.screen_events:
+        _refuse("collision and screen events under the halo step",
+                "slice C, item 14 (per-slab pair recording with the mixed passes)")
     if cfg.particle.max_particles > 0 or cfg.particle.decals or cfg.lighting.enabled:
         _refuse("particles, decals and lighting under the halo step",
                 "slice C, item 14 (the mixed halo passes)")

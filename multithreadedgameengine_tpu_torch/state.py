@@ -19,9 +19,13 @@ canvas (uint8 ``[H, W, 4]`` at decal resolution) with its dirty-tile grid,
 and the shadow-sprite buffer ``[max_shadow_casting_lights x
 max_shadows_per_light]``, each allocated by :func:`make_world` when the
 configuration turns its feature on and None otherwise (the reference keeps
-empty placeholders there). The reference's collision-pair and event tables
-belong to events (ROADMAP slice C, item 13), which the port refuses, and
-its device PRNG key has no user here; neither is allocated.
+empty placeholders there). So is the event state: with
+``logic.collision_events`` the collision-pair table of this frame and the
+last, and the Enter/Stay/Exit tables the device diffs from them, each with
+its count (an int32 scalar tensor, written on the device); with
+``logic.screen_events`` the last frame's on-screen mask and the packed
+onScreen Enter/Exit table. The reference's device PRNG key has no user here
+and is not allocated.
 
 ``EntityPool`` is the reference's host-side numpy free list, copied as is.
 """
@@ -92,6 +96,22 @@ class World(Struct):
     decal_canvas: Optional[torch.Tensor] = None  # uint8[H, W, 4]
     decal_dirty: Optional[torch.Tensor] = None  # bool[tiles_y, tiles_x]
     shadow_sprites: Optional[ShadowSprites] = None
+    # collision events (state.py:60-76): this frame's pair table, -1 padded,
+    # the last frame's, and the tables diffed from the two (ops/events.py)
+    collision_pairs: Optional[torch.Tensor] = None  # int32[max_pairs, 2]
+    collision_pair_count: Optional[torch.Tensor] = None  # int32 scalar
+    prev_collision_pairs: Optional[torch.Tensor] = None
+    prev_collision_pair_count: Optional[torch.Tensor] = None
+    event_enter: Optional[torch.Tensor] = None  # int32[max_pairs, 2]
+    event_enter_count: Optional[torch.Tensor] = None
+    event_stay: Optional[torch.Tensor] = None
+    event_stay_count: Optional[torch.Tensor] = None
+    event_exit: Optional[torch.Tensor] = None
+    event_exit_count: Optional[torch.Tensor] = None
+    # onScreen Enter/Exit (state.py:119-128): the last frame's visibility,
+    # and [n_enter, n_exit, enter ids (cap), exit ids (cap)], -1 padded
+    prev_onscreen: Optional[torch.Tensor] = None  # bool[N]
+    screen_events_packed: Optional[torch.Tensor] = None  # int32[2 + 2*cap]
 
     @property
     def n_entities(self) -> int:
@@ -102,16 +122,45 @@ class World(Struct):
         return self.transform.x.device
 
 
+#: the world's collision-event tables, each with its count
+EVENT_TABLES = (
+    ("collision_pairs", "collision_pair_count"),
+    ("prev_collision_pairs", "prev_collision_pair_count"),
+    ("event_enter", "event_enter_count"),
+    ("event_stay", "event_stay_count"),
+    ("event_exit", "event_exit_count"),
+)
+
+
 def make_world(n_entities: int, device,
                custom_components: Optional[Dict[str, Any]] = None,
                max_particles: int = 0,
                decal_canvas_shape: Optional[Tuple[int, int]] = None,
                decal_tile_shape: Optional[Tuple[int, int]] = None,
-               n_shadow_sprites: int = 0) -> World:
+               n_shadow_sprites: int = 0,
+               max_collision_pairs: int = 0,
+               n_screen_events: int = 0) -> World:
     """A zeroed world; ``custom_components``: {name: component class}. The
-    particle pool, decal canvas and tiles, and shadow sprites are allocated
-    when ``max_particles``, ``decal_canvas_shape`` (with
-    ``decal_tile_shape``) and ``n_shadow_sprites`` ask for them."""
+    particle pool, decal canvas and tiles, shadow sprites, collision-event
+    tables and screen-event state are allocated when ``max_particles``,
+    ``decal_canvas_shape`` (with ``decal_tile_shape``), ``n_shadow_sprites``,
+    ``max_collision_pairs`` and ``n_screen_events`` ask for them."""
+
+    def table():
+        return torch.full((max_collision_pairs, 2), -1, dtype=torch.int32, device=device)
+
+    def count():
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    events = {}
+    if max_collision_pairs > 0:
+        for table_name, count_name in EVENT_TABLES:
+            events[table_name], events[count_name] = table(), count()
+    if n_screen_events > 0:
+        events["prev_onscreen"] = torch.zeros((n_entities,), dtype=torch.bool, device=device)
+        events["screen_events_packed"] = torch.cat([
+            torch.zeros((2,), dtype=torch.int32, device=device),
+            torch.full((2 * n_screen_events,), -1, dtype=torch.int32, device=device)])
     return World(
         transform=Transform.zeros(n_entities, device),
         rigid_body=RigidBody.zeros(n_entities, device),
@@ -129,6 +178,7 @@ def make_world(n_entities: int, device,
                      if decal_canvas_shape else None),
         shadow_sprites=(ShadowSprites.zeros(n_shadow_sprites, device)
                         if n_shadow_sprites > 0 else None),
+        **events,
     )
 
 

@@ -592,3 +592,78 @@ def test_predators_operating_point_runs_k1_once_a_frame(cuda):
     assert int(m["solver_overflow"]) == 0 and int(m["nonfinite_count"]) == 0
     assert 0 < int(eng.world.shadow_sprites.active.sum()) <= 5 * 15
     assert eng.world.decal_canvas.shape == (1000, 2500, 4)
+
+
+def pair_events(device, chunk, overlap=False):
+    """``tests/test_round2.py``'s ``_Pair`` scene: two overlapping statics
+    with enter and stay hooks, 4 frames with collision events. Returns the
+    hook calls ``(kind, me, other)``, and K1's launches a substep."""
+    from multithreadedgameengine_tpu_torch import (
+        Collider, Engine, EntityClass, RigidBody, SpriteRenderer, make_config)
+
+    calls = []
+
+    class Pair(EntityClass):
+        components = [RigidBody, Collider, SpriteRenderer]
+        uses_neighbors = False
+        on_collision_enter = staticmethod(lambda ctx, me, o: calls.append(("enter", me, o)))
+        on_collision_stay = staticmethod(lambda ctx, me, o: calls.append(("stay", me, o)))
+
+        @classmethod
+        def setup(cls, ctx):
+            return {"collider.radius": 10.0, "collider.visual_range": 60.0,
+                    "rigid_body.static": True}
+
+    eng = Engine(make_config(world_width=500.0, world_height=500.0,
+                             spatial=dict(cell_size=50.0, max_neighbors=8),
+                             logic=dict(collision_events=True, event_chunk=chunk,
+                                        event_overlap=overlap)), device=device)
+    eng.register_entity_class(Pair, 2)
+    eng.init()
+    eng.spawn("Pair", x=100.0, y=100.0)
+    eng.spawn("Pair", x=110.0, y=100.0)
+    before = cuda_kernels.pair_pass_resident.launches
+    eng.step(4)
+    eng.sync()
+    launches = cuda_kernels.pair_pass_resident.launches - before
+    return [(k, int(m), int(o)) for k, m, o in calls], launches / eng.config.physics.sub_step_count
+
+
+@pytest.mark.parametrize("chunk,overlap", [(1, False), (3, False), (3, True)])
+def test_pair_events_on_card_match_cpu(cuda, chunk, overlap):
+    """Collision events on the card, frame by frame, in chunks of 3 (the
+    device log copied to pinned memory) and with the overlapped log: the
+    same hook calls as the CPU's frame-by-frame run, 2 enters and 6 stays,
+    and K1 once a substep of each frame."""
+    base, _ = pair_events("cpu", 1)
+    assert sum(k == "enter" for k, *_ in base) == 2 and sum(k == "stay" for k, *_ in base) == 6
+    calls, launches = pair_events(cuda, chunk, overlap)
+    assert calls == base
+    assert launches == 4
+
+
+def test_event_chunk_does_not_wait_for_the_card(cuda, monkeypatch):
+    """BASELINE config 4 with events in chunks: every frame of a chunk and
+    its log write run under ``torch.cuda.set_sync_debug_mode("error")``, so
+    nothing in them waits for the card (the animation tables live on it, no
+    count is read back); the chunk's log reaches the host by one copy."""
+    from multithreadedgameengine_tpu_torch.engine import _EventLog
+
+    eng = predators_scene(cuda, logic=dict(collision_events=True, event_chunk=4))
+    eng.step(4)
+    eng.sync()
+
+    def no_sync(fn):
+        def wrapped(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return wrapped
+
+    monkeypatch.setattr(eng, "_one_step", no_sync(eng._one_step))
+    monkeypatch.setattr(_EventLog, "write", no_sync(_EventLog.write))
+    eng.step(4)
+    eng.sync()
+    assert eng.world.step_count == 8

@@ -133,12 +133,41 @@ def test_mulberry32_streams_match_reference(seed):
 
 @pytest.mark.parametrize("physics,other", [
     (dict(solver="neighbors"), {}),
-    ({}, dict(logic=dict(collision_events=True))),
-    ({}, dict(logic=dict(screen_events=True))),
-], ids=["neighbors", "collision_events", "screen_events"])
+], ids=["neighbors"])
 def test_unported_config_is_refused(physics, other):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(make_config(physics=physics, **other), device="cpu")
+
+
+@pytest.mark.parametrize("logic", [
+    dict(collision_events=True),
+    dict(screen_events=True),
+], ids=["collision_events", "screen_events"])
+def test_event_config_runs(logic):
+    """The event configurations slice C3 ported, refused before it: the
+    engine builds, allocates the event state, and a ball scene runs 2
+    frames on the CPU with its pair or screen tables written."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    assert Engine(make_config(logic=logic), device="cpu").config.logic == make_config(
+        logic=logic).logic
+    eng = make_balls_engine(n_balls=60, seed=4, device="cpu", world_width=300.0,
+                            world_height=200.0, logic=logic)
+    m = eng.step(2)
+    w = eng.world
+    assert w.step_count == 2
+    assert bool((torch.isfinite(w.transform.x) & torch.isfinite(w.transform.y)).all())
+    if "collision_events" in logic:
+        assert eng._plan.need_neighbors and w.prev_onscreen is None
+        assert w.collision_pairs.shape == (eng.config.physics.max_collision_pairs, 2)
+        # 60 balls of radius 10-30 in 300 x 200 touch
+        assert int(m["collision_pair_count"]) + int(m["collision_pairs_dropped"]) > 1
+        assert torch.equal(w.prev_collision_pairs, w.collision_pairs)
+    else:
+        assert w.collision_pairs is None and not eng._plan.need_neighbors
+        assert w.screen_events_packed.shape == (2 + 2 * 1024,)
+        assert int(w.screen_events_packed[0]) == 0  # every ball entered on frame 1
+        assert int(w.prev_onscreen.sum()) > 0
 
 
 @pytest.mark.parametrize("other", [

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 torch_profile.py [--frames 20] [--out build/torch_profile.json]
+    python3 torch_profile.py [--frames 20] [--cells a,b] [--out build/torch_profile.json]
 
 For each cell -- the demo scene (10,000 balls, ``bench.py``'s scene), the
 JAX ladder's 1M rung (``benchmarks/run_ladder.py:84-93``, the auto knobs),
 BASELINE config 3 (``boids_15k``, ``chip_smoke.py`` phase 7: 15,000
 boids, ``run_ladder.py:166-188``) and BASELINE config 4
 (``predators_15k``, ``chip_smoke.py`` phase 10: the predators demo's
-operating point, camera zoomed out) through ``Engine.step``, and the halo
+operating point, camera zoomed out) through ``Engine.step``, the same
+scene with events on (``predators_15k_events``, ``chip_smoke.py`` phase 11:
+``logic.collision_events``, ``event_chunk`` 60, ``event_overlap``, as the
+JAX ladder's ``rung_predators`` runs it), and the halo
 rungs (``chip_smoke.py`` phases 6 and 8: the 1M balls scene and the
 102,400-boid scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one
 card) through ``parallel.make_halo_step`` -- it warms up, then:
@@ -22,7 +25,12 @@ card) through ``parallel.make_halo_step`` -- it warms up, then:
   cell's last world), and for predators_15k ``--frames`` calls of the
   64-stamp decal loop alone (``ops.decals.stamp_decals`` on the stamp batch
   of the cell's last pool), and reports the device time of one and its
-  share of a frame's.
+  share of a frame's;
+- for predators_15k_events, profiles ``--frames`` calls of the event
+  difference alone (``ops.events.diff_pairs`` on the cell's last pair
+  tables), and times each host read and dispatch of a chunk's event log
+  (the copy's wait, the hooks, the emissions they queue landing in the
+  pool) on the host clock, and reports its bytes.
 
 It prints, per cell, wall ms/step (median of the three chunks, profiler
 off), device ms/step and the device's busy share over the profiled chunk,
@@ -45,6 +53,7 @@ from chip_smoke import (
     BOIDS_N,
     BOIDS_WORLD,
     CONFIG3_SPATIAL,
+    EVENTS_LOGIC,
     HALO_BOIDS_N,
     HALO_BOIDS_OVERSUB,
     HALO_BOIDS_SPATIAL,
@@ -67,6 +76,7 @@ CELLS = {
                        world_height=HALO_WORLD[1]),
     "boids_15k": dict(boids=BOIDS_N),
     "predators_15k": dict(predators=True),
+    "predators_15k_events": dict(predators=True, events=True),
     "halo_boids_102k_d4": dict(boids=HALO_BOIDS_N - 1),
 }
 
@@ -77,12 +87,13 @@ def engine_runner(kw: dict):
     that builds lists, the stamp loop of one with decals)."""
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     from multithreadedgameengine_tpu_torch.ops.decals import stamp_decals
+    from multithreadedgameengine_tpu_torch.ops.events import diff_pairs
     from multithreadedgameengine_tpu_torch.ops.particles import update_particles
 
     if "boids" in kw:
         eng = boids_engine("cuda", kw["boids"], BOIDS_WORLD, CONFIG3_SPATIAL)
     elif "predators" in kw:
-        eng = predators_engine("cuda")
+        eng = predators_engine("cuda", **({"logic": EVENTS_LOGIC} if kw.get("events") else {}))
     else:
         eng = make_balls_engine(device="cuda", **kw)
 
@@ -90,9 +101,29 @@ def engine_runner(kw: dict):
         eng.step(frames)
         eng.sync()
 
+    reads = []  # (host seconds, log bytes, frames) of each chunk's dispatch
+    if kw.get("events"):
+        dispatch = eng._dispatch_logged_events
+
+        def timed_dispatch(log):
+            t0 = time.perf_counter()
+            dispatch(log)
+            reads.append((time.perf_counter() - t0, log.buf.numel() * 4, log.k))
+
+        eng._dispatch_logged_events = timed_dispatch
+
     def info():
-        return {"kernel": "K2" if eng._plan.symmetric else "K1",
-                "residency": eng._plan.residency, "lazy_frames": eng.lazy_frames}
+        out = {"kernel": "K2" if eng._plan.symmetric else "K1",
+               "residency": eng._plan.residency, "lazy_frames": eng.lazy_frames}
+        if reads:
+            out["event_log"] = {
+                "chunks_read": len(reads),
+                "bytes_per_chunk": reads[-1][1],
+                "frames_per_chunk": reads[-1][2],
+                "dispatch_ms_per_chunk_median": statistics.median(r[0] for r in reads) * 1e3,
+                "dispatch_ms_per_chunk_max": max(r[0] for r in reads) * 1e3,
+            }
+        return out
 
     def lists():
         neighbor_lists_of(eng.world, eng.config)
@@ -105,10 +136,17 @@ def engine_runner(kw: dict):
             stamps.append(update_particles(w.particles, cfg, cfg.dt_ratio, True)[1])
         stamp_decals(w.decal_canvas, w.decal_dirty, stamps[0], eng._plan.decal_textures, cfg)
 
+    def event_diff():
+        w = eng.world
+        diff_pairs(w.collision_pairs, w.collision_pair_count, w.prev_collision_pairs,
+                   w.prev_collision_pair_count)
+
     alone = {}
-    if "boids" in kw or "predators" in kw:
+    if kw.get("events"):
+        alone["diff_pairs"] = event_diff
+    if "boids" in kw or ("predators" in kw and not kw.get("events")):
         alone["neighbor_lists"] = lists
-    if "predators" in kw:
+    if "predators" in kw and not kw.get("events"):
         alone["stamp_decals"] = stamp_loop
     return run, info, alone
 
@@ -183,6 +221,7 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
         "kernel": picked["kernel"],
         "residency": picked["residency"],
         "lazy_frames_in_profiled_chunk": picked["lazy_frames"] - lazy0,
+        **({"event_log": picked["event_log"]} if "event_log" in picked else {}),
         "top": [
             {"name": k[:90], "ms_per_step": us / frames / 1e3, "calls_per_step": c / frames,
              "share": us / total_us}
@@ -209,6 +248,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="comma-separated cells to profile (default: all)")
     ap.add_argument("--out", default="build/torch_profile.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -217,8 +258,8 @@ def main() -> int:
     smi = card_name_and_limit()
     print(smi, flush=True)
     results = {"card": smi, "torch": torch.__version__, "cells": []}
-    for name, kw in CELLS.items():
-        r = profile_cell(name, kw, args.frames, args.top)
+    for name in args.cells.split(","):
+        r = profile_cell(name, CELLS[name], args.frames, args.top)
         results["cells"].append(r)
         print(f"[{name}] kernel={r['kernel']} residency={r['residency']} "
               f"wall_ms_per_step={r['wall_ms_per_step']:.4f} "
@@ -230,8 +271,10 @@ def main() -> int:
               + "".join(f" {part}_device_ms={r[part + '_device_ms']:.4f} "
                         f"{part}_device_ops={r[part + '_device_ops']:.1f} "
                         f"{part}_share={r[part + '_share']:.3f}"
-                        for part in ("neighbor_lists", "stamp_decals")
-                        if part + "_share" in r), flush=True)
+                        for part in ("neighbor_lists", "stamp_decals", "diff_pairs")
+                        if part + "_share" in r)
+              + (f" event_log={json.dumps(r['event_log'])}" if "event_log" in r else ""),
+              flush=True)
         for t in r["top"]:
             print(f"    {t['ms_per_step']:9.4f} ms/step {t['share'] * 100:5.1f}% "
                   f"x{t['calls_per_step']:.1f}  {t['name']}", flush=True)
