@@ -65,9 +65,13 @@ Phases, each printing one line or more before the last:
 9. K4 (``expand``) at the probe's shapes (``benchmarks/
    probe_expand_kernel.py:104-119``: 1,000,000 entities, 66 chunks of
    131,072 slots): one placement through the wrapper as the probe makes
-   it, then against its plain version bit for bit there and on a small
-   odd-sized case, timed beside the probe's yardstick (zeros and
-   ``index_copy_``, ``[k4]``);
+   it, then against its plain version bit for bit there, on a small
+   odd-sized case and on the edges of its tiling (a chunk whose every slot
+   holds an entity, chunks that are no multiple of the tile, entities on
+   the first and last slot of every tile, one entity in 66 probe-sized
+   chunks), with its plan (slots a tile, blocks, shared memory a block)
+   and its registers and spills from ``-Xptxas -v``, timed beside the
+   probe's yardstick (zeros and ``index_copy_``, ``[k4]``);
 10. slice C2's main path, BASELINE config 4 (``models/predators.py``'s
    ``make_predators_engine`` at the demo's operating point: 15,000 prey, 8
    predators, 5 lights and the mouse in 5000 x 2000, the 50,000-particle
@@ -1301,24 +1305,66 @@ def halo_boids_phase(dev, errs):
                       plain_ms_halo_boids=k3_plain_ms, bound_ms_halo_boids=b[0])
 
 
-def k4_inputs(dev, n, chunk, total, seed, empty_chunk=None):
+def k4_inputs(dev, n, chunk, total, seed, empty_chunk=None, slots=None, specials=False):
     """K4's inputs as the probe makes them: ``n`` distinct slots of
-    ``total`` (a seeded permutation; none in chunk ``empty_chunk``), the
-    entities sorted by slot, each chunk's range by a search of the sorted
-    slots, normal x and y."""
+    ``total`` (a seeded permutation; none in chunk ``empty_chunk``; or the
+    given ``slots``, shuffled), the entities sorted by slot, each chunk's
+    range by a search of the sorted slots, normal x and y (with -0.0, inf
+    and NaN as the first three x if ``specials``)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    perm = torch.randperm(total, generator=g, device=dev)
-    if empty_chunk is not None:
-        perm = perm[perm // chunk != empty_chunk]
-    flat = perm[:n].to(torch.int32)
+    if slots is None:
+        perm = torch.randperm(total, generator=g, device=dev)
+        if empty_chunk is not None:
+            perm = perm[perm // chunk != empty_chunk]
+        flat = perm[:n].to(torch.int32)
+    else:
+        flat = slots[torch.randperm(slots.numel(), generator=g, device=dev)].to(torch.int32)
+        n = flat.numel()
     order = torch.argsort(flat).to(torch.int32)
     starts = torch.arange(0, total + 1, chunk, device=dev, dtype=torch.int32)
     bounds = torch.searchsorted(flat[order.long()], starts).to(torch.int32)
     x = torch.randn(n, generator=g, device=dev)
     y = torch.randn(n, generator=g, device=dev)
+    if specials:
+        x[:3] = torch.tensor([-0.0, float("inf"), float("nan")], device=dev)[:n]
     return (x, y, order, flat, bounds, total, chunk)
+
+
+def k4_edge_cases(dev):
+    """The edges of K4's tiling, each against its plain version: a tile
+    spans a multiple of 8 slots and starts on one, wherever the grid puts
+    it, so entities on the first and last slot of every 8-slot group sit on
+    the first and last slot of every tile."""
+    import torch
+
+    edges = torch.arange(0, 4 * 12_296, 8, device=dev)
+    return [
+        # every slot of every chunk holds an entity; 8,200 is no multiple
+        # of the tile
+        ("dense", k4_inputs(dev, 3 * 8200, 8200, 3 * 8200, SEED + 2, specials=True)),
+        # chunks of three tiles and 8 slots, chunk 1 empty
+        ("ragged", k4_inputs(dev, 20_000, 12_296, 4 * 12_296, SEED + 3, empty_chunk=1,
+                             specials=True)),
+        ("tile_edges", k4_inputs(dev, 0, 12_296, 4 * 12_296, SEED + 4,
+                                 slots=torch.cat([edges, edges + 7]), specials=True)),
+        ("single", k4_inputs(dev, 1, K4_CHUNK, K4_TOTAL, SEED + 5)),
+        ("chunk_8", k4_inputs(dev, 5, 8, 24, SEED + 6, specials=True)),
+    ]
+
+
+def ptxas_figures(report: str) -> dict:
+    """Registers, stack and spills of the one kernel of a ``-Xptxas -v``
+    report."""
+    import re
+
+    regs = re.search(r"Used (\d+) registers", report)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", report)
+    check(regs is not None and frame is not None, f"no ptxas figures in {report!r}")
+    return dict(registers=int(regs.group(1)), stack_bytes=int(frame.group(1)),
+                spill_stores=int(frame.group(2)), spill_loads=int(frame.group(3)))
 
 
 def k4_bound(args):
@@ -1350,16 +1396,18 @@ def k4_phase(dev):
     check(launches == 1 and placed and zeros, f"K4: launches {launches}, placed {placed}, "
           f"zeros elsewhere {zeros}")
     errs = []
-    # a small odd-sized case: an odd entity count, chunks of 8200 slots (a
-    # block of 8192 and a ragged one of 8), chunk 2 with no entity
+    # a small odd-sized case: an odd entity count, chunks of 8200 slots,
+    # chunk 2 with no entity
     small = k4_inputs(dev, 1237, 8200, 5 * 8200, SEED + 1, empty_chunk=2)
-    for name, args in (("probe", probe), ("small", small)):
+    for name, args in (("probe", probe), ("small", small), *k4_edge_cases(dev)):
         kx, ky = ck.expand(*args)
         px, py = ck.expand_plain(*args)
         torch.cuda.synchronize()
         same = bool(torch.equal(kx.view(torch.int32), px.view(torch.int32))
                     and torch.equal(ky.view(torch.int32), py.view(torch.int32)))
-        err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+        # over the finite words: -0.0, inf and NaN are held by the bits
+        err = max(torch.where(p.isfinite(), k - p, 0.0).abs().max().item()
+                  for k, p in ((kx, px), (ky, py)))
         errs.append(err)
         log("parity", kernel="expand", case=name, shape=list(kx.shape), entities=args[0].numel(),
             bit_equal=same, max_abs_err=err)
@@ -1379,7 +1427,13 @@ def k4_phase(dev):
     lib = graph_timer(lambda: scatter(), (), 50)
     lib_ms = statistics.median([lib(), lib(), lib()])
     bound_ms = k4_bound(probe)
+    from multithreadedgameengine_tpu_torch.ops import _build
+
+    figures = ptxas_figures(_build.ptxas_report(_build.library_path(_build.CSRC / "expand.cu")))
+    check(figures["spill_stores"] == 0 and figures["spill_loads"] == 0,
+          f"K4 spills registers: {figures}")
     log("k4", entities=K4_N, chunks=total // chunk, slots=total, launches=launches,
+        **ck.expand_plan(total), **figures,
         k4_ms=k4_ms, plain_ms=k4_plain_ms, library_ms=lib_ms,
         library_call="zeros + index_copy_ of x and y", bound_ms=bound_ms, bound_by="bytes",
         share_of_bound=bound_ms / k4_ms)

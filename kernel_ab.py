@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the tiled pair passes K1, K2 and K3 against other versions of
-their sources, on one NVIDIA GPU.
+"""A/B of the tiled pair passes K1, K2 and K3 and of the expand placement
+K4 against other versions of their sources, on one NVIDIA GPU.
 
     python3 kernel_ab.py --old DIR [DIR ...] [--ablate DIR ...] [--out build/kernel_ab.json]
 
 Each ``DIR`` holds another version of some of ``pair_pass_resident.cu``,
-``pair_pass_grid.cu`` and ``pair_pass_symmetric.cu`` (and any header they
-include), for example taken out of git with ``git show <commit>:
-multithreadedgameengine_tpu_torch/csrc/pair_pass_grid.cu``; their C launch
+``pair_pass_grid.cu``, ``pair_pass_symmetric.cu`` and ``expand.cu`` (and
+any header they include), for example taken out of git with ``git show
+<commit>:multithreadedgameengine_tpu_torch/csrc/expand.cu``; their C launch
 functions must take the current ones' arguments. ``--ablate`` takes
 versions that compute something else (the current sources with a phase cut
 out, to price that phase): they are timed the same way but not checked. All
@@ -16,15 +16,19 @@ parallel, and each library's ``-Xptxas -v`` lines are printed. Then, for
 each kernel and shape -- K3 on slab 1 of the 1M halo rung and of the 10k
 demo scene (4 slabs, 3 frames), K2 with its folded clamp on the 1M ladder
 layout and without it on the 10k demo layout, K1 on the same two layouts
-(``chip_smoke.py``'s scenes) -- it checks that each old kernel, the new one
+(``chip_smoke.py``'s scenes), K4 at the probe's shapes (1,000,000 entities,
+66 chunks of 131,072 slots) and on a ragged case (1,237 entities, chunks of
+8,200 slots, chunk 2 empty) -- it checks that each old kernel, the new one
 and the plain version agree bit for bit, prints the tile the new kernel
-takes there (``cuda_kernels.tile_of``), and times each old one against the
-new one in turns (old, new, new, old, twice), each turn one replay of a
-CUDA graph of 50-200 launches between CUDA events (``chip_smoke.
-graph_timer``), printing each median beside the bound from
-``chip_smoke.py``. A directory without a kernel's source skips that
-kernel's cases. The last line is a JSON object of the results, also written
-to ``--out``. Imports nothing of JAX.
+takes there (``cuda_kernels.tile_of``, or K4's ``expand_plan``), and times
+each old one against the new one in turns (old, new, new, old, twice),
+each turn one replay of a CUDA graph of 50-200 launches between CUDA events
+(``chip_smoke.graph_timer``), printing each median beside the bound from
+``chip_smoke.py``. K4 is timed a second way too: each launch after a 64 MB
+write that flushes the 50 MB L2 cache, the write's own time (timed alone
+the same way) subtracted. A directory without a kernel's source skips that
+kernel's cases. The last line is a JSON object of the results, also
+written to ``--out``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-SOURCES = ("pair_pass_grid.cu", "pair_pass_resident.cu", "pair_pass_symmetric.cu")
+SOURCES = ("expand.cu", "pair_pass_grid.cu", "pair_pass_resident.cu", "pair_pass_symmetric.cu")
 
 
 def build_old(old_dir: Path):
@@ -107,9 +111,16 @@ def old_wrappers(fns):
                float(w), float(h))
         return nx, ny, c
 
+    def expand_old(x, y, order, flat, bounds, total, chunk):
+        ox = torch.empty((total // chunk * 8, chunk // 8), dtype=torch.float32, device=x.device)
+        oy = torch.empty_like(ox)
+        launch(fns["expand_launch"], x, y, order, flat, bounds, ox, oy, total // chunk, chunk)
+        return ox, oy
+
     wrappers = {"pair_pass_grid": pair_pass_grid_old,
                 "pair_pass_resident": pair_pass_resident_old,
-                "pair_pass_symmetric": pair_pass_symmetric_old}
+                "pair_pass_symmetric": pair_pass_symmetric_old,
+                "expand": expand_old}
     return {k: f for k, f in wrappers.items() if f"{k}_launch" in fns}
 
 
@@ -130,6 +141,26 @@ def time_ab(old, new, args, reps, **kw):
         t_new += [run_new(), run_new()]
         t_old.append(run_old())
     return statistics.median(t_old), statistics.median(t_new)
+
+
+def time_ab_flushed(old, new, args, reps):
+    """As :func:`time_ab`, each launch after a 64 MB write that evicts the
+    50 MB L2 cache; the write's own median, from a graph of ``reps`` writes
+    alone, is subtracted from both."""
+    import torch
+
+    scratch = torch.empty(16 * 2**20, dtype=torch.float32, device=args[0].device)
+
+    def flushed(fn):
+        def run(*a):
+            scratch.zero_()
+            return fn(*a)
+        return run
+
+    flush = cs.graph_timer(scratch.zero_, (), reps)
+    ms_flush = statistics.median([flush() for _ in range(4)])
+    ms_old, ms_new = time_ab(flushed(old), flushed(new), args, reps)
+    return ms_old - ms_flush, ms_new - ms_flush, ms_flush
 
 
 def main() -> int:
@@ -172,7 +203,25 @@ def main() -> int:
     ladder = dict(n_balls=1_000_000, seed=cs.SEED, world_width=90_000.0,
                   world_height=40_000.0, physics=cs.LADDER_PHYSICS)
     demo = dict(n_balls=cs.N_MAIN, seed=cs.SEED)
-    cases = [
+    def pair_figures(name, key):
+        """A pair pass's bound, from the contacts the new kernel counted,
+        and the tile it takes."""
+        def figures(inputs, got):
+            contacts = int(got[2].sum().item())
+            cs.check(contacts > 0, f"{key}: no contact")
+            b = (cs.grid_bound(inputs, contacts) if key == "K3"
+                 else cs.bound(inputs, contacts, key != "K1"))
+            return b, {"shape": list(inputs[0].shape), "contacts": contacts,
+                       "tile": list(ck.tile_of(name, inputs[0].shape))}
+        return figures
+
+    def k4_figures(inputs, got):
+        cs.check(inputs[0].numel() > 0, "K4: no entity")
+        return (cs.k4_bound(inputs), "bytes"), {
+            "shape": list(got[0].shape), "entities": inputs[0].numel(),
+            **ck.expand_plan(inputs[5])}
+
+    pairs = [
         ("K3", "halo_1m_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain,
          lambda: cs.halo_slab_args(dev, dict(n_balls=cs.HALO_N - 1, seed=cs.SEED,
                                              world_width=cs.HALO_WORLD[0],
@@ -188,18 +237,23 @@ def main() -> int:
         ("K1", "demo_10k", ck.pair_pass_resident, ck.pair_pass_resident_plain,
          lambda: layout(demo, 30), {}, 200),
     ]
+    cases = [(*c, pair_figures(c[2].__name__, c[0])) for c in pairs] + [
+        ("K4", "probe_1m", ck.expand, ck.expand_plain,
+         lambda: cs.k4_inputs(dev, cs.K4_N, cs.K4_CHUNK, cs.K4_TOTAL, cs.SEED), {}, 50,
+         k4_figures),
+        ("K4", "ragged_1237", ck.expand, ck.expand_plain,
+         lambda: cs.k4_inputs(dev, 1237, 8200, 5 * 8200, cs.SEED + 1, empty_chunk=2), {}, 200,
+         k4_figures),
+    ]
     rows = []
-    for key, shape_name, new, plain, make, kw, reps in cases:
+    for key, shape_name, new, plain, make, kw, reps, figures in cases:
         if not any(new.__name__ in wrappers for wrappers, _checked in olds.values()):
             continue
         inputs = make()
         got_new = new(*inputs, **kw)
-        same_plain = bit_equal(got_new, plain(*inputs, **kw))
-        contacts = int(got_new[2].sum().item())
-        cs.check(same_plain and contacts > 0, f"{key} on {shape_name}: new vs plain differ")
-        b = (cs.grid_bound(inputs, contacts) if key == "K3"
-             else cs.bound(inputs, contacts, key != "K1"))
-        tile = list(ck.tile_of(new.__name__, inputs[0].shape))  # the new kernel's
+        cs.check(bit_equal(got_new, plain(*inputs, **kw)),
+                 f"{key} on {shape_name}: new vs plain differ")
+        b, fields = figures(inputs, got_new)
         for old_name, (wrappers, checked) in olds.items():
             old = wrappers.get(new.__name__)
             if old is None:
@@ -207,12 +261,15 @@ def main() -> int:
             cs.check(not checked or bit_equal(got_new, old(*inputs, **kw)),
                      f"{key} on {shape_name}: new vs {old_name} differ")
             ms_old, ms_new = time_ab(old, new, inputs, reps, **kw)
-            row = {"kernel": key, "shape_name": shape_name, "shape": list(inputs[0].shape),
-                   "tile": tile, "contacts": contacts, "old": old_name, "old_ms": ms_old,
-                   "new_ms": ms_new,
+            row = {"kernel": key, "shape_name": shape_name, **fields, "old": old_name,
+                   "old_ms": ms_old, "new_ms": ms_new,
                    "speedup": ms_old / ms_new, "bound_ms": b[0], "bound_by": b[1],
                    "new_share_of_bound": b[0] / ms_new, "old_share_of_bound": b[0] / ms_old,
                    "bit_equal_old_new_plain": checked}
+            if key == "K4":
+                f_old, f_new, f_write = time_ab_flushed(old, new, inputs, reps)
+                row.update(old_ms_l2_flushed=f_old, new_ms_l2_flushed=f_new,
+                           flush_write_ms=f_write)
             cs.log("ab", **row)
             rows.append(row)
         del inputs, got_new

@@ -43,6 +43,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 ENTRY_POINTS = {
     "expand.cu": (
         ("expand_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+        ("expand_plan", [_I, _P], _I),
     ),
     "pair_pass_grid.cu": (
         ("pair_pass_grid_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),

@@ -31,7 +31,10 @@ capacity above what the smallest tile stages is refused with a
 K4 replaces the probe kernel ``benchmarks/probe_expand_kernel.py::expand``
 (its only caller in the reference is that probe): :func:`expand`, source
 ``csrc/expand.cu``, which places x and y at distinct flat slots of two
-zeroed outputs, chunk by chunk. It only moves words.
+zeroed outputs, chunk by chunk. It only moves words: a persistent block
+stages a tile of both outputs in shared memory, zeroes it, writes the
+tile's entities into it and stores it once (:func:`expand_plan` gives the
+tile and the grid).
 
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
@@ -584,3 +587,18 @@ def expand(x: Tensor, y: Tensor, order: Tensor, flat: Tensor, bounds: Tensor,
 
 
 expand.launches = 0
+
+
+def expand_plan(total: int) -> dict:
+    """The plan one launch of K4 takes on the current CUDA device for
+    ``total`` slots: slots a tile, blocks, threads a block and bytes of
+    shared memory a block."""
+    import ctypes
+
+    from . import _build
+
+    plan = (ctypes.c_int * 4)()
+    err = _build.load().expand_plan(int(total), plan)
+    if err != 0:
+        raise RuntimeError(f"expand: no plan for {total} slots (CUDA error {err})")
+    return dict(tile_slots=plan[0], blocks=plan[1], threads=plan[2], smem_bytes=plan[3])

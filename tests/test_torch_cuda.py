@@ -408,17 +408,25 @@ def test_resident_slice_on_card_matches_cpu(cuda):
 
 
 def k4_args(device, n, chunk, n_chunks, seed, empty_chunk=None):
+    """K4's inputs: ``n`` distinct random slots (none in ``empty_chunk``),
+    or with ``n == "tile_edges"`` the first and last slot of every 8-slot
+    group, which holds the first and last slot of every tile: a tile spans
+    a multiple of 8 slots and starts on one, wherever the grid puts it."""
     rng = np.random.default_rng(seed)
     total = n_chunks * chunk
     slots = np.arange(total)
     if empty_chunk is not None:
         slots = slots[slots // chunk != empty_chunk]
-    flat = rng.choice(slots, size=n, replace=False).astype(np.int32)
+    if n == "tile_edges":
+        flat = rng.permutation(slots[slots % 8 % 7 == 0]).astype(np.int32)
+        n = flat.size
+    else:
+        flat = rng.choice(slots, size=n, replace=False).astype(np.int32)
     order = np.argsort(flat).astype(np.int32)
     bounds = np.searchsorted(flat[order], np.arange(0, total + 1, chunk)).astype(np.int32)
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(n).astype(np.float32)
-    x[:3] = [-0.0, np.inf, np.nan]  # words are moved, not computed
+    x[:3] = [-0.0, np.inf, np.nan][:n]  # words are moved, not computed
     t = [torch.from_numpy(a).to(device) for a in (x, y, order, flat, bounds)]
     return (*t, total, chunk)
 
@@ -427,6 +435,10 @@ def k4_args(device, n, chunk, n_chunks, seed, empty_chunk=None):
     (100_000, 128 * 1024, 8, None),  # the probe's chunk
     (1237, 8200, 5, 2),  # an odd count, a ragged block, an empty chunk
     (5, 8, 3, None),  # chunks smaller than a block
+    (3 * 8200, 8200, 3, None),  # every slot of every chunk holds an entity
+    (20_000, 3 * 4096 + 8, 4, 1),  # chunks that are no multiple of the tile
+    ("tile_edges", 3 * 4096 + 8, 4, None),  # the first and last slot of every tile
+    (1, 128 * 1024, 66, None),  # one entity in 66 probe-sized chunks
 ])
 def test_k4_matches_plain_on_card(cuda, n, chunk, n_chunks, empty):
     from multithreadedgameengine_tpu_torch.ops.cuda_kernels import expand, expand_plain

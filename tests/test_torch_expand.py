@@ -46,6 +46,8 @@ def inputs(n, chunk, n_chunks, seed, empty_chunk=None):
 @pytest.mark.parametrize("n,chunk,n_chunks,empty", [
     (3000, 1024, 8, None),  # 3,000 entities in 8 chunks of 1,024 slots
     (777, 1024, 3, 1),  # an odd count, an empty chunk
+    (3 * 1024, 1024, 3, None),  # every slot of every chunk holds an entity
+    (5, 8, 3, None),  # chunks of 8 slots, smaller than any tile
 ])
 def test_plain_expand_matches_reference_kernel(probe, n, chunk, n_chunks, empty):
     arrays, total, chunk = inputs(n, chunk, n_chunks, 11, empty)
