@@ -99,7 +99,36 @@ Phases, each printing one line or more before the last:
    for 6 frames (``[events_reference]``: per-frame event tables and hook
    calls identical, pool and canvas within ``[predators_reference]``'s
    bounds); and on the card at ``event_chunk`` 1, 4 and 4 with overlap for
-   12 frames (``[events_chunk]``: hook calls identical).
+   12 frames (``[events_chunk]``: hook calls identical);
+12. slice E2, the mixed halo passes: the halo benchmark's mixed scene
+   (``benchmarks/halo_scaling.py:61-75``: 25,600 entity slots, 24
+   predators, 7 lights, the rest prey, in 7000 s x 3500 s with s = (25,600
+   / 15,028)^0.5, collision events, ``oversub`` 2.5 as in
+   ``HALO_SCALING_PREDATORS_r03.json``) on 4 slabs of the card, a blood and
+   a landing burst in the pool, 3 + 1 + 20 frames, the fourth under
+   ``set_sync_debug_mode("error")`` (``[halo_predators_d4]``: steps/s,
+   pairs, particles, shadows, route overflows, K3 launches); the 400-prey
+   event scene through the halo step on 3 slabs and through
+   ``Engine.step``, the engine's hooks fired after every frame of both
+   (``[halo_events_reference]``: event tables, hook calls, emissions, pool,
+   canvas and entities identical); ``tests/test_halo_mixed.py``'s static
+   shadow scene through both slab steps and ``Engine.step``
+   (``[slab_shadows_static]``);
+13. the homed step: halo_1m_d4's scene through ``make_homed_step``
+   (headroom 1.125, as ``benchmarks/halo_scaling.py:150-186`` runs it),
+   3 + 1 + 10 frames, the fourth under the sync check (``[homed_1m_d4]``:
+   steps/s beside phase 6's halo steps/s, migrated rows a frame,
+   violators, overflow, K3 launches); K3 on a slab whose band is shorter
+   than the padded grid (its lower halo row inside the computed window)
+   against its plain version, bit for bit, and timed; the 100k balls
+   scene under the homed step against ``Engine.step``
+   (``[homed_vs_single_100k]``, bit-equal); phase 8's boids scene under the
+   homed step, bit-equal with the halo step and ``Engine.step``
+   (``[homed_boids_102k_d4]``, run in phase 8);
+14. phase 12's mixed scene through the homed step (headroom 2), one frame
+   under the sync check, against phase 12's halo run of the same frames
+   (``[homed_mixed]``: entities, event tables, pool, canvas and shadows
+   identical).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -157,6 +186,14 @@ PRED_REF_FRAMES = 6
 EVENTS_LOGIC = dict(collision_events=True, event_chunk=60, event_overlap=True)
 EV_WARMUP, EV_CHUNK, EV_CHUNKS = 5, 60, 3
 EV_CHUNK_FRAMES = 12
+# slice E2: the halo benchmark's mixed scene (halo_scaling.py:61-75) at the
+# size and route oversub of HALO_SCALING_PREDATORS_r03.json, the homed
+# rung's headroom (halo_scaling.py:150-186), the mixed scene's homed
+# headroom (the reference's default), and the slabs of the 414-entity event
+# scene (the entity count must split evenly)
+HALO_PRED_N, HALO_PRED_OVERSUB, HALO_PRED_WARMUP, HALO_PRED_FRAMES = 25_600, 2.5, 3, 20
+HOMED_HEADROOM, HOMED_MIXED_HEADROOM = 1.125, 2.0
+HALO_EVENT_SLABS = 3
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -535,7 +572,7 @@ def slab_grid_args(step, chunks, mesh, d=1):
     sent = [halo.slab_solver_rows(c, plan, i) for i, c in enumerate(chunks)]
     recv, _slot, _ovf = halo.route_out(mesh, *zip(*sent), plan.route_cap)
     grids = [halo.slab_grid(r, plan, i)[0] for i, r in enumerate(recv)]
-    halo._fill_border(mesh, grids, plan.slab_geom.rows)
+    halo.fill_border(mesh, grids, [plan.slab_geom.rows] * mesh.n_slabs)
     st = grid_solver_state(grids[d])
     return (st.gx, st.gy, st.attrs, chunks[0].step_count,
             float(plan.cfg.physics.collision_response_strength))
@@ -673,7 +710,8 @@ def halo_phase(dev):
     bound_10k = grid_bound(small, int(kc.sum().item()))
     log("timing", grid="halo_10k_slab1", shape=list(small[0].shape), k3_ms=k3_ms_10k,
         k3_plain_ms=k3_plain_10k, bound_ms=bound_10k[0], bound_by=bound_10k[1])
-    return dict(launches=k3_h, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound_k3,
+    return dict(launches=k3_h, steps_per_s=HALO_FRAMES / dt, ms=k3_ms, plain_ms=k3_plain_ms,
+                bound=bound_k3,
                 shape=slab_shape, errs=errs, shape_10k=list(small[0].shape), ms_10k=k3_ms_10k,
                 plain_ms_10k=k3_plain_10k, bound_ms_10k=bound_10k[0])
 
@@ -1291,6 +1329,43 @@ def halo_boids_phase(dev, errs):
     check(k1_s == HALO_BOIDS_FRAMES * subs and k3_s == 0 and k2_s == 0,
           f"halo_boids: Engine.step launched K1 {k1_s}, K2 {k2_s}, K3 {k3_s}")
     check(not diff, f"halo_boids: the halo step and Engine.step differ: {diff}")
+
+    # the same scene under the homed step, against both
+    from multithreadedgameengine_tpu_torch.parallel import make_homed_step
+
+    eo = boids_engine(dev, HALO_BOIDS_N - 1, HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL,
+                      solver_predicated="off")
+    eo._flush_pending()
+    step_o, place_o, unplace_o, _ctl = make_homed_step(eo, make_mesh(HALO_SLABS, dev),
+                                                       headroom=HOMED_HEADROOM)
+    c, g = place_o(eo.world)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HALO_BOIDS_FRAMES):
+        c, g, mo = step_o(c, g, ins)
+    torch.cuda.synchronize()
+    dt_o = time.perf_counter() - t0
+    k3_o = read_counts()[2]
+    o = unplace_o(c, g)
+    diff_s, diff_h = world_diff(o, b, replicated=False), world_diff(o, a, replicated=False)
+    log("homed_boids_102k_d4", entities=HALO_BOIDS_N, slabs=HALO_SLABS,
+        frames=HALO_BOIDS_FRAMES, steps_per_s=HALO_BOIDS_FRAMES / dt_o,
+        halo_boids_steps_per_s=(HALO_BOIDS_FRAMES - 1) / dt, headroom=HOMED_HEADROOM,
+        n_cap=step_o.plan.n_cap, cap_pb=step_o.plan.cap_pb, band_len=list(step_o.plan.band_len),
+        k3_launches=k3_o, expected_k3=HALO_BOIDS_FRAMES * subs * HALO_SLABS,
+        n_binned=int(mo["n_binned"].item()), migrated_rows=int(mo["migrated_rows"].item()),
+        home_violators=int(mo["home_violators"].item()),
+        route_overflow_solver=int(mo["route_overflow_solver"].item()),
+        bit_equal_single=not diff_s, bit_equal_halo=not diff_h,
+        differing=json.dumps(diff_s, sort_keys=True).replace(" ", ""))
+    check(int(mo["home_violators"].item()) == 0 and int(mo["route_overflow_solver"].item()) == 0,
+          "homed_boids_102k_d4: violators or overflow")
+    check(k3_o == HALO_BOIDS_FRAMES * subs * HALO_SLABS,
+          f"homed_boids_102k_d4: K3 launched {k3_o}")
+    check(not diff_s and not diff_h,
+          f"homed_boids_102k_d4: the homed step differs: {diff_s} (single), {diff_h} (halo)")
+    del eo, c, g, o
     ck = kernels()
     args = slab_grid_args(step, chunks, make_mesh(HALO_SLABS, dev))
     err, (_x, _y, kc) = kernel_vs_plain(ck.pair_pass_grid, ck.pair_pass_grid_plain,
@@ -1301,7 +1376,8 @@ def halo_boids_phase(dev, errs):
     b = grid_bound(args, int(kc.sum().item()))
     log("timing", grid="halo_boids_slab1", shape=list(args[0].shape), k3_ms=k3_ms,
         k3_plain_ms=k3_plain_ms, bound_ms=b[0], bound_by=b[1])
-    return k3_h, dict(shape_halo_boids=list(args[0].shape), ms_halo_boids=k3_ms,
+    return k3_h, dict(launches_homed_boids=k3_o, shape_halo_boids=list(args[0].shape),
+                      ms_halo_boids=k3_ms,
                       plain_ms_halo_boids=k3_plain_ms, bound_ms_halo_boids=b[0])
 
 
@@ -1439,6 +1515,471 @@ def k4_phase(dev):
         share_of_bound=bound_ms / k4_ms)
     return dict(launches=launches, ms=k4_ms, plain_ms=k4_plain_ms, library_ms=lib_ms,
                 bound=(bound_ms, "bytes"), errs=errs, shape=list(ox.shape))
+
+
+# ---------------------------------------------------------------------------
+# slice E2: the mixed halo passes and the position-homed step
+# ---------------------------------------------------------------------------
+
+def halo_predators_engine(dev):
+    """The halo benchmark's mixed scene (``benchmarks/halo_scaling.py:
+    61-75``): BASELINE config 4 scaled to ``HALO_PRED_N`` entity slots (the
+    mouse, 24 predators, 7 lights, the rest prey) in 7000 s x 3500 s, s =
+    (N / 15,028)^0.5, with collision events, at ``[predators_15k]``'s
+    camera; one blood burst and one landing burst queued into the pool so
+    the particle and decal passes have work."""
+    s = (HALO_PRED_N / 15_028) ** 0.5
+    eng = predators_engine(dev, n_prey=HALO_PRED_N - 32, n_predators=24, n_lights=7,
+                           world_width=7000.0 * s, world_height=3500.0 * s,
+                           logic=dict(collision_events=True))
+    eng._flush_pending()
+    blood_burst(eng)
+    landing_burst(eng)
+    eng._flush_emissions()
+    return eng
+
+
+def run_timed(step, state, ins, warmup, frames, sync_frame=True):
+    """``warmup`` frames, one more under ``set_sync_debug_mode("error")``
+    (no host read may happen inside a frame), then ``frames`` timed frames.
+    ``state`` is the step's state tuple; returns (state, last metrics, the
+    metrics of every timed frame, steps/s)."""
+    import torch
+
+    for _ in range(warmup):
+        *state, m = step(*state, ins)
+    if sync_frame:
+        torch.cuda.synchronize()
+        *state, m = no_host_reads(step)(*state, ins)
+    torch.cuda.synchronize()
+    timed = []
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        *state, m = step(*state, ins)
+        timed.append(m)
+    torch.cuda.synchronize()
+    return state, m, timed, frames / (time.perf_counter() - t0)
+
+
+def world_diff(a, b, replicated=True):
+    """The entity leaves (and replicated leaves) of two port worlds that
+    differ: {name: max abs difference or count of differing entries}."""
+    import dataclasses
+
+    import torch
+
+    from multithreadedgameengine_tpu_torch.parallel.halo import (
+        REPLICATED,
+        _get_comp,
+        entity_leaf_specs,
+    )
+
+    def cmp(name, u, v, out):
+        if u is None and v is None:
+            return
+        if u.dtype == torch.float32:
+            if not torch.equal(u, v):
+                out[name] = (u.double() - v.double()).abs().max().item()
+        elif not torch.equal(u, v):
+            out[name] = int((u != v).sum().item())
+
+    out = {}
+    for cname, fname, _dt in entity_leaf_specs(a):
+        cmp(f"{cname}.{fname}", getattr(_get_comp(a, cname), fname),
+            getattr(_get_comp(b, cname), fname), out)
+    if replicated:
+        for name in REPLICATED:
+            u, v = getattr(a, name), getattr(b, name)
+            if name in ("collision_pairs", "prev_collision_pairs", "shadow_sprites"):
+                continue  # slab order / inactive slots: compared by their own checks
+            if isinstance(u, torch.Tensor) or u is None:
+                cmp(name, u, v, out)
+            else:
+                for f in dataclasses.fields(u):
+                    cmp(f"{name}.{f.name}", getattr(u, f.name), getattr(v, f.name), out)
+    return out
+
+
+def shadows_equal(a, b) -> bool:
+    """The active shadow slots of two worlds, and their values, equal."""
+    import torch
+
+    sa, sb = a.shadow_sprites.map_tensors(torch.Tensor.cpu), b.shadow_sprites.map_tensors(
+        torch.Tensor.cpu)
+    return bool(torch.equal(sa.active, sb.active)) and all(
+        torch.equal(getattr(sa, f)[sa.active], getattr(sb, f)[sb.active])
+        for f in ("x", "y", "rotation", "scale_x", "scale_y", "alpha", "radius"))
+
+
+def halo_predators_phase(dev):
+    """Phase 12: the mixed scene on 4 slabs through the halo step, one frame
+    under the sync check. Returns (K3 launches, the run's state for the
+    homed comparison)."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, unplace_fn
+
+    eng = halo_predators_engine(dev)
+    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, dev), oversub=HALO_PRED_OVERSUB)
+    plan = step.plan
+    ins = eng.input.snapshot(dev)
+    zero_counts()
+    (chunks,), m, timed, sps = run_timed(step, (place(eng.world),), ins, HALO_PRED_WARMUP,
+                                         HALO_PRED_FRAMES)
+    k1, k2, k3 = read_counts()
+    frames = HALO_PRED_WARMUP + 1 + HALO_PRED_FRAMES
+    subs = plan.cfg.physics.sub_step_count
+    mi = {k: int(v.item()) for k, v in m.items()}
+    w = unplace_fn(chunks)
+    ok = finite(w)
+    shadows = int(w.shadow_sprites.active.sum().item())
+    log("halo_predators_d4", card=repr(card_name_and_limit()), entities=w.n_entities,
+        slabs=HALO_SLABS, frames=frames, steps_per_s=sps, oversub=HALO_PRED_OVERSUB,
+        route_cap=plan.route_cap, hw=plan.hw, need_neighbors=plan.need_neighbors,
+        scope_hooked=plan.scope_hooked, payload_channels=len(plan.payload_channels),
+        pairs=mi["collision_pair_count"], pairs_dropped=mi["collision_pairs_dropped"],
+        enter=int(w.event_enter_count.item()), stay=int(w.event_stay_count.item()),
+        exit=int(w.event_exit_count.item()), particles=mi["active_particles"],
+        canvas_px=int((w.decal_canvas[..., 3] > 0).sum().item()), shadows=shadows,
+        n_binned=mi["n_binned"], route_overflow_logic=mi["route_overflow_logic"],
+        route_overflow_solver=mi["route_overflow_solver"], k3_launches=k3,
+        expected_k3=frames * HALO_SLABS * subs, k1_launches=k1, k2_launches=k2,
+        frame_without_host_reads=True, finite=ok)
+    check(ok and mi["nonfinite_count"] == 0, "halo_predators_d4: non-finite positions")
+    check(mi["route_overflow_logic"] == 0 and mi["route_overflow_solver"] == 0,
+          "halo_predators_d4: route overflow")
+    check(k3 == frames * HALO_SLABS * subs and k1 == 0 and k2 == 0,
+          f"halo_predators_d4: K3 {k3}, K1 {k1}, K2 {k2} launches")
+    check(mi["collision_pair_count"] > 0 and shadows > 0 and mi["active_particles"] > 0,
+          f"halo_predators_d4: no pairs, shadows or particles: {mi}, shadows {shadows}")
+    check(mi["n_binned"] == w.n_entities, f"halo_predators_d4: n_binned {mi['n_binned']}")
+    del eng, chunks
+    return k3, dict(world=w, frames=frames, steps_per_s=sps)
+
+
+def frame_with_hooks(eng, step, chunks, ins, unplace):
+    """One halo frame with the engine's hook dispatch around it, as
+    ``Engine.step(1)`` runs one: the emitter's queue lands in the shared
+    pool, the frame runs, ``eng.world`` takes the frame's world and the
+    hooks fire on its event tables. Returns (chunks, metrics)."""
+    from multithreadedgameengine_tpu_torch.emitter import batch_to_device
+    from multithreadedgameengine_tpu_torch.ops.particles import apply_emission
+
+    batch, n = eng.emitter.build_batch()
+    if batch is not None:
+        pool, _n = apply_emission(chunks[0].particles, batch_to_device(batch, eng.device), n)
+        chunks = [c.replace(particles=pool) for c in chunks]
+    chunks, m = step(chunks, ins)
+    eng.world = unplace(chunks)
+    eng._dispatch_collision_events()
+    return chunks, m
+
+
+def static_shadow_engine(dev, **kw):
+    """``tests/test_halo_mixed.py``'s static shadow scene: 59 casters and 4
+    lamps in 2000 x 1600 (a moving caster's shadow would lag a frame under
+    the slab steps, by design)."""
+    import numpy as np
+
+    from multithreadedgameengine_tpu_torch import Engine, EntityClass, make_config
+    from multithreadedgameengine_tpu_torch.components import (
+        Collider,
+        LightEmitter,
+        RigidBody,
+        ShadowCaster,
+        SpriteRenderer,
+    )
+
+    class Caster(EntityClass):
+        components = [RigidBody, Collider, SpriteRenderer, ShadowCaster]
+        uses_neighbors = False
+
+        @classmethod
+        def setup(cls, ctx):
+            return {"collider.radius": 8.0, "collider.visual_range": 40.0,
+                    "rigid_body.static": True, "shadow.shadow_radius": 9.0,
+                    "shadow.height": 30.0}
+
+    class Lamp(EntityClass):
+        components = [RigidBody, Collider, SpriteRenderer, LightEmitter]
+        uses_neighbors = False
+
+        @classmethod
+        def setup(cls, ctx):
+            return {"collider.radius": 4.0, "collider.visual_range": 190.0,
+                    "rigid_body.static": True, "light.light_intensity": 500.0,
+                    "light.light_color": 0xFFEECC, "light.height": 50.0}
+
+    eng = Engine(make_config(
+        world_width=2000.0, world_height=1600.0, seed=21, canvas_width=2000, canvas_height=1600,
+        spatial=dict(cell_size=100.0, max_neighbors=32, cell_capacity=16),
+        physics=dict(sub_step_count=1, gravity=(0.0, 0.0)),
+        lighting=dict(enabled=True, shadows_enabled=True, max_shadow_casting_lights=4,
+                      max_shadows_per_light=6)), device=dev)
+    eng.register_entity_class(Caster, 59)
+    eng.register_entity_class(Lamp, 4)
+    eng.init()
+    rng = np.random.default_rng(17)
+    for _ in range(59):
+        eng.spawn("Caster", x=float(rng.uniform(800, 1200)), y=float(rng.uniform(600, 1000)))
+    for k in range(4):
+        eng.spawn("Lamp", x=900.0 + 100.0 * k, y=700.0 + 50.0 * k)
+    eng._flush_pending()
+    eng.input.set_camera(1000.0, 800.0, 1.0)
+    return eng
+
+
+def slab_events_reference(dev):
+    """The 400-prey event scene through the halo step on
+    ``HALO_EVENT_SLABS`` slabs and through ``Engine.step`` on the card,
+    each frame's hooks fired by the engine: per-frame event tables and hook
+    calls, and the pool, the canvas and the entities at the end,
+    identical; then the static shadow scene through the halo step, the
+    homed step and ``Engine.step``."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.parallel import (
+        make_halo_step,
+        make_homed_step,
+        make_mesh,
+        unplace_fn,
+    )
+
+    es, calls_s, emits_s = events_scene(dev, 1)
+    eh, calls_h, emits_h = events_scene(dev, 1)
+    for e in (es, eh):
+        e._flush_pending()
+    step, place = make_halo_step(eh, make_mesh(HALO_EVENT_SLABS, dev), oversub=float(
+        HALO_EVENT_SLABS))
+    chunks = place(eh.world)
+    ins = eh.input.snapshot(dev)
+    tables_s, tables_h = [], []
+    zero_counts()
+    for _ in range(PRED_REF_FRAMES):
+        es.step(1)
+        tables_s.append(event_tables(es))
+        chunks, m = frame_with_hooks(eh, step, chunks, ins, unplace_fn)
+        tables_h.append(event_tables(eh))
+    k1, k2, k3 = read_counts()
+    diff = world_diff(unplace_fn(chunks), es.world)
+    stays = sum(len(t[2]) for t in tables_s)
+    same_events = [t[1:] for t in tables_s] == [t[1:] for t in tables_h]
+    log("halo_events_reference", prey=PRED_REF["n_prey"], slabs=HALO_EVENT_SLABS,
+        frames=PRED_REF_FRAMES, event_tables_identical=same_events,
+        pair_counts_identical=[len(t[0]) for t in tables_s] == [len(t[0]) for t in tables_h],
+        hook_calls_identical=calls_s == calls_h, emits_identical=emits_s == emits_h,
+        stay_rows=stays, emits=len(emits_s), symmetric_single=es._plan.symmetric,
+        k3_launches=k3, k1_launches=k1, k2_launches=k2,
+        live_particles=int(es.world.particles.active.sum().item()),
+        world_identical=not diff, differing=json.dumps(diff, sort_keys=True).replace(" ", ""))
+    check(same_events and calls_s == calls_h and emits_s == emits_h,
+          "halo_events_reference: event tables, hook calls or emissions differ")
+    check(stays > 0 and emits_s, "halo_events_reference: the blood hook never fired")
+    check(not diff, f"halo_events_reference: the halo step and Engine.step differ: {diff}")
+    del es, eh, chunks
+
+    runs = {}
+    for how in ("single", "halo", "homed"):
+        e = static_shadow_engine(dev)
+        ins = e.input.snapshot(dev)
+        if how == "single":
+            e.step(3)
+            runs[how] = e.snapshot()
+        elif how == "halo":
+            s, p = make_halo_step(e, make_mesh(HALO_SLABS, dev))
+            c = p(e.world)
+            for _ in range(3):
+                c, _m = s(c, ins)
+            runs[how] = unplace_fn(c)
+        else:
+            s, p, u, _ctl = make_homed_step(e, make_mesh(HALO_SLABS, dev), headroom=float(
+                HALO_SLABS))
+            c, g = p(e.world)
+            for _ in range(3):
+                c, g, _m = s(c, g, ins)
+            runs[how] = u(c, g)
+    n_sh = int(runs["single"].shadow_sprites.active.sum().item())
+    same = {how: shadows_equal(runs[how], runs["single"]) for how in ("halo", "homed")}
+    log("slab_shadows_static", frames=3, shadows=n_sh, identical=json.dumps(same).replace(" ", ""))
+    check(n_sh > 0 and all(same.values()), f"slab_shadows_static: shadows differ: {same}")
+
+
+def homed_slab_grid_args(step, chunks, gids, mesh, d):
+    """K3's input on slab ``d`` at this moment of a homed run: phase B's
+    staging, block exchange, merge, binning and border fill
+    (``parallel.homed``'s per-slab functions) applied to the chunks."""
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import grid_solver_state
+    from multithreadedgameengine_tpu_torch.parallel import halo, homed
+
+    plan = step.plan
+    staged = [homed.slab_solver_stage(c, g, plan, i)
+              for i, (c, g) in enumerate(zip(chunks, gids))]
+    above = mesh.shift_up([s.buf_up for s in staged])
+    below = mesh.shift_down([s.buf_dn for s in staged])
+    merged = [homed.slab_phase_b_merge(s, g, a, b, plan.n_cap)
+              for s, g, a, b in zip(staged, gids, above, below)]
+    grids = [halo.bin_solver_rows(mg.res, plan, row0)[0]
+             for mg, row0 in zip(merged, plan.band_start)]
+    halo.fill_border(mesh, grids, plan.band_len)
+    st = grid_solver_state(grids[d])
+    return (st.gx, st.gy, st.attrs, chunks[0].step_count,
+            float(plan.cfg.physics.collision_response_strength))
+
+
+def homed_phase(dev, halo_sps, errs):
+    """Phase 13: halo_1m_d4's scene through the homed step (headroom
+    1.125, as ``benchmarks/halo_scaling.py:150-186`` runs it), one frame
+    under the sync check; K3 on its short-band slab against its plain
+    version, bit for bit, and timed there; then the 100k balls scene under
+    the homed step against ``Engine.step``. Returns K3's launches on the
+    1M run and the short slab's figures."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.parallel import make_homed_step, make_mesh
+
+    ck = kernels()
+    eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
+                            world_width=HALO_WORLD[0], world_height=HALO_WORLD[1])
+    eng._flush_pending()
+    mesh = make_mesh(HALO_SLABS, dev)
+    step, place, _unplace, _ctl = make_homed_step(eng, mesh, headroom=HOMED_HEADROOM)
+    plan = step.plan
+    subs = plan.cfg.physics.sub_step_count
+    ins = eng.input.snapshot(dev)
+    zero_counts()
+    (chunks, gids), m, timed, sps = run_timed(step, place(eng.world), ins, HALO_WARMUP,
+                                              HALO_FRAMES)
+    k1, k2, k3 = read_counts()
+    frames = HALO_WARMUP + 1 + HALO_FRAMES
+    migrated = [int(t["migrated_rows"].item()) for t in timed]
+    violators = max(int(t["home_violators"].item()) for t in timed)
+    overflow = max(int(t["route_overflow_solver"].item()) for t in timed)
+    ok = all(finite(c) for c in chunks)
+    log("homed_1m_d4", card=repr(card_name_and_limit()), entities=HALO_N, slabs=HALO_SLABS,
+        frames=frames, steps_per_s=sps, halo_1m_d4_steps_per_s=halo_sps,
+        headroom=HOMED_HEADROOM, n_cap=plan.n_cap, m_mig=plan.m_mig, cap_pb=plan.cap_pb,
+        band_len=list(plan.band_len), solver_geom=plan.solver_geom,
+        migrated_rows_per_frame=json.dumps(migrated).replace(" ", ""),
+        home_violators=violators, route_overflow_solver=overflow,
+        active_count=int(m["active_count"].item()),
+        solver_binned=int(m["solver_binned"].item()), k3_launches=k3,
+        expected_k3=frames * subs * HALO_SLABS, k1_launches=k1, k2_launches=k2,
+        frame_without_host_reads=True, finite=ok)
+    check(ok and int(m["nonfinite_count"].item()) == 0, "homed_1m_d4: non-finite positions")
+    check(violators == 0 and overflow == 0,
+          f"homed_1m_d4: home_violators {violators}, route_overflow_solver {overflow}")
+    check(int(m["active_count"].item()) == HALO_N, "homed_1m_d4: entities lost")
+    check(k3 == frames * subs * HALO_SLABS and k1 == 0 and k2 == 0,
+          f"homed_1m_d4: K3 {k3}, K1 {k1}, K2 {k2} launches")
+
+    # K3 on a slab whose band is shorter than the padded grid's rows
+    short = [d for d, n in enumerate(plan.band_len) if n < plan.slab_geom.rows]
+    check(bool(short), f"homed_1m_d4: no short band in {plan.band_len}")
+    inner = [d for d in short if 0 < d < HALO_SLABS - 1]  # a slab below fills its halo row
+    d = (inner or short)[-1]
+    args = homed_slab_grid_args(step, chunks, gids, mesh, d)
+    kx, ky, kc = ck.pair_pass_grid(*args)
+    px, py, pc = ck.pair_pass_grid_plain(*args)
+    torch.cuda.synchronize()
+    err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+    n_bad = int((kc != pc).sum().item())
+    halo_row = plan.band_len[d] + 1
+    log("parity", kernel="pair_pass_grid", layout=f"homed_1m_slab{d}", shape=list(kx.shape),
+        band_len=plan.band_len[d], halo_row=halo_row, contacts=int(kc.sum().item()),
+        halo_row_colliders=int(((args[2][halo_row, ..., 1].to(torch.int32) & 1) == 1)
+                               .sum().item()),
+        count_mismatch=n_bad, max_abs_err=err)
+    check(n_bad == 0 and err == 0.0, f"K3 differs from its plain version on the short slab {d}")
+    errs["K3"].append(err)
+    k3_ms, k3_plain_ms = time_kernel(ck.pair_pass_grid, ck.pair_pass_grid_plain, args,
+                                     kernel_reps=50, plain_reps=2)
+    b = grid_bound(args, int(kc.sum().item()))
+    short_shape = list(args[0].shape)
+    log("timing", grid=f"homed_1m_slab{d}", shape=short_shape, k3_ms=k3_ms,
+        k3_plain_ms=k3_plain_ms, bound_ms=b[0], bound_by=b[1])
+    del eng, chunks, gids, args, kx, ky, kc, px, py, pc
+    torch.cuda.empty_cache()
+
+    # the 100k balls scene under the homed step against Engine.step
+    scene = dict(n_balls=CHECK_N - 1, seed=SEED, device=dev, world_width=CHECK_WORLD[0],
+                 world_height=CHECK_WORLD[1])
+    eh, es = make_balls_engine(**scene), make_balls_engine(**scene)
+    for e in (eh, es):
+        e._flush_pending()
+    step_c, place_c, unplace_c, _ctl = make_homed_step(eh, make_mesh(HALO_SLABS, dev),
+                                                       headroom=HOMED_HEADROOM)
+    c, g = place_c(eh.world)
+    zero_counts()
+    for _ in range(10):
+        c, g, mc = step_c(c, g, eh.input.snapshot(dev))
+    k3_c = read_counts()[2]
+    zero_counts()
+    es.step(10, block=True)
+    k1_c, k2_c, _k3 = read_counts()
+    diff = world_diff(unplace_c(c, g), es.world, replicated=False)
+    log("homed_vs_single_100k", slabs=HALO_SLABS, frames=10, k3_launches=k3_c,
+        k1_launches_single=k1_c, k2_launches_single=k2_c, bit_equal=not diff,
+        differing=json.dumps(diff, sort_keys=True).replace(" ", ""),
+        band_len=list(step_c.plan.band_len),
+        migrated_rows=int(mc["migrated_rows"].item()),
+        home_violators=int(mc["home_violators"].item()),
+        route_overflow_solver=int(mc["route_overflow_solver"].item()))
+    check(int(mc["home_violators"].item()) == 0 and int(mc["route_overflow_solver"].item()) == 0,
+          "homed_vs_single_100k: violators or overflow")
+    check(not diff, f"homed_vs_single_100k: the homed step and Engine.step differ: {diff}")
+    check(k3_c == 10 * subs * HALO_SLABS and k1_c == 10 * subs and k2_c == 0,
+          f"homed_vs_single_100k: K3 {k3_c}, K1 {k1_c}, K2 {k2_c} launches")
+    return k3, dict(shape_homed_short=short_shape, band_len_homed_short=plan.band_len[d],
+                    ms_homed_short=k3_ms, plain_ms_homed_short=k3_plain_ms,
+                    bound_ms_homed_short=b[0], bound_by_homed_short=b[1],
+                    launches_homed_1m=k3, launches_homed_100k=k3_c)
+
+
+def homed_mixed_phase(dev, halo_run):
+    """Phase 14: the mixed scene of phase 12 under the homed step, one frame
+    under the sync check, against the halo step's run of the same frames:
+    entities, event tables, pool, canvas and shadows identical. Returns K3's
+    launches."""
+    from multithreadedgameengine_tpu_torch.parallel import make_homed_step, make_mesh
+
+    eng = halo_predators_engine(dev)
+    step, place, unplace, _ctl = make_homed_step(eng, make_mesh(HALO_SLABS, dev),
+                                                 headroom=HOMED_MIXED_HEADROOM)
+    plan = step.plan
+    ins = eng.input.snapshot(dev)
+    zero_counts()
+    (chunks, gids), m, timed, sps = run_timed(step, place(eng.world), ins, HALO_PRED_WARMUP,
+                                              HALO_PRED_FRAMES)
+    k1, k2, k3 = read_counts()
+    frames = HALO_PRED_WARMUP + 1 + HALO_PRED_FRAMES
+    subs = plan.cfg.physics.sub_step_count
+    mi = {k: int(v.item()) for k, v in m.items()}
+    w = unplace(chunks, gids)
+    violators = max(int(t["home_violators"].item()) for t in timed)
+    overflow = max(int(t["route_overflow_solver"].item()) for t in timed)
+    h = halo_run["world"]
+    diff = world_diff(w, h)
+    same_shadows = shadows_equal(w, h)
+    log("homed_mixed", entities=w.n_entities, slabs=HALO_SLABS, frames=frames, steps_per_s=sps,
+        halo_predators_d4_steps_per_s=halo_run["steps_per_s"], headroom=HOMED_MIXED_HEADROOM,
+        n_cap=plan.n_cap, cap_pb=plan.cap_pb, band_len=list(plan.band_len),
+        pairs=mi["collision_pair_count"], particles=mi["active_particles"],
+        shadows=int(w.shadow_sprites.active.sum().item()),
+        migrated_rows_per_frame=json.dumps([int(t["migrated_rows"].item()) for t in timed])
+        .replace(" ", ""), home_violators=violators, route_overflow_solver=overflow,
+        k3_launches=k3, expected_k3=frames * HALO_SLABS * subs, k1_launches=k1,
+        k2_launches=k2, identical_to_halo=not diff and same_shadows,
+        differing=json.dumps(diff, sort_keys=True).replace(" ", ""),
+        frame_without_host_reads=True, finite=finite(w))
+    check(finite(w) and mi["nonfinite_count"] == 0, "homed_mixed: non-finite positions")
+    check(violators == 0 and overflow == 0,
+          f"homed_mixed: home_violators {violators}, route_overflow_solver {overflow}")
+    check(k3 == frames * HALO_SLABS * subs and k1 == 0 and k2 == 0,
+          f"homed_mixed: K3 {k3}, K1 {k1}, K2 {k2} launches")
+    check(not diff and same_shadows,
+          f"homed_mixed: the homed and halo steps differ: {diff}, shadows {same_shadows}")
+    return k3
 
 
 def main() -> int:
@@ -1656,6 +2197,17 @@ def main() -> int:
     events_reference(dev)
     events_chunk(dev)
 
+    # 12. slice E2: the mixed halo passes at scale, then against Engine.step
+    k3_pred, halo_run = halo_predators_phase(dev)
+    slab_events_reference(dev)
+
+    # 13. the homed step: the 1M rung, K3 on its short band, 100k bit-equality
+    k3_homed, homed_timing = homed_phase(dev, halo["steps_per_s"], errs)
+
+    # 14. the mixed scene under the homed step, against phase 12's run
+    k3_homed_mixed = homed_mixed_phase(dev, halo_run)
+    del halo_run
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -1682,7 +2234,9 @@ def main() -> int:
               halo["ms"], halo["plain_ms"], halo["bound"],
               {"shape": halo["shape"], "shape_10k": halo["shape_10k"], "ms_10k": halo["ms_10k"],
                "plain_ms_10k": halo["plain_ms_10k"], "bound_ms_10k": halo["bound_ms_10k"],
-               "launches_halo_boids": k3_boids, **k3_boids_timing}),
+               "launches_halo_boids": k3_boids, **k3_boids_timing,
+               "launches_halo_predators": k3_pred, "launches_homed_mixed": k3_homed_mixed,
+               **homed_timing}),
         entry("K4", ck.expand, "multithreadedgameengine_tpu_torch/csrc/expand.cu",
               "benchmarks/probe_expand_kernel.py:74", k4["launches"], k4["ms"],
               k4["plain_ms"], k4["bound"], {"shape": k4["shape"]},

@@ -135,8 +135,15 @@ def pair_pass_resident_plain(
     _check_layout(x, y, radius, meta)
     cap, rows, cols = x.shape
     R, C = rows - 2, cols - 2
-    ctr = (slice(None), slice(1, R + 1), slice(1, C + 1))
-    xs, ys, rs, ms = x[ctr], y[ctr], radius[ctr], meta[ctr]
+    # the centre cells holding a collider, as flat indices of the bordered
+    # plane: every other slot passes through, so only these are computed
+    # (each slot's sum runs in the same order, so the result is the dense
+    # computation's bit for bit)
+    fl = lambda a: a.reshape(cap, rows * cols)  # noqa: E731
+    coll = ((meta >> 24) & 1) == 1
+    coll[:, 0], coll[:, -1], coll[:, :, 0], coll[:, :, -1] = False, False, False, False
+    cidx = torch.nonzero(coll.any(0).flatten()).flatten()
+    xs, ys, rs, ms = fl(x)[:, cidx], fl(y)[:, cidx], fl(radius)[:, cidx], fl(meta)[:, cidx]
     fi = ms >> 24
     ok_i = (fi & 1) == 1
     trig_i = (fi & 2) != 0
@@ -148,8 +155,8 @@ def pair_pass_resident_plain(
     acc_c = torch.zeros(xs.shape, dtype=torch.int32, device=x.device)
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
-            nb = (slice(None), slice(1 + dr, R + 1 + dr), slice(1 + dc, C + 1 + dc))
-            xn, yn, rn, mn = x[nb], y[nb], radius[nb], meta[nb]
+            nb = cidx + dr * cols + dc
+            xn, yn, rn, mn = fl(x)[:, nb], fl(y)[:, nb], fl(radius)[:, nb], fl(meta)[:, nb]
             for j in range(cap):
                 mj = mn[j]
                 fj = mj >> 24
@@ -182,9 +189,9 @@ def pair_pass_resident_plain(
 
     new_x, new_y = x.clone(), y.clone()
     count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    new_x[ctr] = torch.where(ok_i, xs + acc_x, xs)
-    new_y[ctr] = torch.where(ok_i, ys + acc_y, ys)
-    count[ctr] = acc_c
+    fl(new_x)[:, cidx] = torch.where(ok_i, xs + acc_x, xs)
+    fl(new_y)[:, cidx] = torch.where(ok_i, ys + acc_y, ys)
+    fl(count)[:, cidx] = acc_c
     return new_x, new_y, count
 
 
@@ -423,29 +430,36 @@ def pair_pass_grid_plain(
     _check_grid(x, y, attrs)
     rows, cols, cap = x.shape
     R, C = rows - 2, cols - 2
-    ctr = (slice(1, R + 1), slice(1, C + 1))
-    pk = attrs[..., 1].to(torch.int32)
-    gid = attrs[..., 2].to(torch.int32)
-    rad = attrs[..., 0]
-    # centre slots i on axis 2, neighbour slots j on axis 3
-    xs, ys, rs = x[ctr][..., None], y[ctr][..., None], rad[ctr][..., None]
-    ok_i = (pk[ctr][..., None] & 1) == 1
-    trig_i = (pk[ctr][..., None] & 2) != 0
-    st_i = (pk[ctr][..., None] & 4) != 0
-    id_i = gid[ctr][..., None]
+    pk = attrs[..., 1].to(torch.int32).reshape(rows * cols, cap)
+    gid = attrs[..., 2].to(torch.int32).reshape(rows * cols, cap)
+    rad = attrs[..., 0].reshape(rows * cols, cap)
+    xf, yf = x.reshape(rows * cols, cap), y.reshape(rows * cols, cap)
+    # the interior cells holding a collider, as flat indices: every other
+    # cell gets nothing, so only these are computed (each slot's sum runs
+    # in the same order, so the result is the dense computation's bit for
+    # bit)
+    coll = ((pk & 1) == 1).any(1).view(rows, cols).clone()
+    coll[0], coll[-1], coll[:, 0], coll[:, -1] = False, False, False, False
+    cidx = torch.nonzero(coll.flatten()).flatten()
+    # centre slots i on axis 1, neighbour slots j on axis 2
+    xs, ys, rs = xf[cidx][..., None], yf[cidx][..., None], rad[cidx][..., None]
+    ok_i = (pk[cidx][..., None] & 1) == 1
+    trig_i = (pk[cidx][..., None] & 2) != 0
+    st_i = (pk[cidx][..., None] & 4) != 0
+    id_i = gid[cidx][..., None]
 
-    acc_x = torch.zeros((R, C, cap), dtype=torch.float32, device=x.device)
+    acc_x = torch.zeros((cidx.shape[0], cap), dtype=torch.float32, device=x.device)
     acc_y = torch.zeros_like(acc_x)
-    acc_c = torch.zeros((R, C, cap), dtype=torch.int32, device=x.device)
+    acc_c = torch.zeros((cidx.shape[0], cap), dtype=torch.int32, device=x.device)
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
-            nb = (slice(1 + dr, R + 1 + dr), slice(1 + dc, C + 1 + dc), None)
-            pkb, idb = pk[nb], gid[nb]  # [R, C, 1, cap]
+            nb = cidx + dr * cols + dc
+            pkb, idb = pk[nb][:, None], gid[nb][:, None]  # [n, 1, cap]
             ok = ok_i & ((pkb & 1) == 1) & (id_i != idb)
-            dx = xs - x[nb]
-            dy = ys - y[nb]
+            dx = xs - xf[nb][:, None]
+            dy = ys - yf[nb][:, None]
             d2 = dx * dx + dy * dy
-            min_d = rs + rad[nb]
+            min_d = rs + rad[nb][:, None]
             overlap = ok & (d2 < min_d * min_d)
 
             blocked = trig_i | ((pkb & 2) != 0) | st_i
@@ -470,7 +484,9 @@ def pair_pass_grid_plain(
     disp_x = torch.zeros_like(x)
     disp_y = torch.zeros_like(y)
     count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    disp_x[ctr], disp_y[ctr], count[ctr] = acc_x, acc_y, acc_c
+    disp_x.view(rows * cols, cap)[cidx] = acc_x
+    disp_y.view(rows * cols, cap)[cidx] = acc_y
+    count.view(rows * cols, cap)[cidx] = acc_c
     return disp_x, disp_y, count
 
 

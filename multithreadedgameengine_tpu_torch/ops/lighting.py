@@ -37,7 +37,7 @@ from ..config import EngineConfig
 from ..state import World
 from ..utils import light_attenuation
 from .particles import first_k_where
-from .physics import _sqrt
+from .physics import _atan2, _sqrt
 from .spatial import NeighborLists
 
 _HALF_PI = float(np.float32(math.pi / 2))
@@ -123,13 +123,27 @@ def _shadow_rows(world: World, cfg: EngineConfig, order: torch.Tensor, l_valid: 
     kept = torch.gather(keep, 1, ord2)
     d2 = torch.gather(d2, 1, ord2)
     j = torch.gather(j_all, 1, ord2)
-    lx = t.x[order][:, None]
-    ly = t.y[order][:, None]
-    l_int = li.light_intensity[order][:, None]
-    dist = _sqrt(d2)
-    cx, cy = t.x[j], t.y[j]
     c_rad = torch.where(sh.shadow_radius[j] > 0, sh.shadow_radius[j], 10.0)  # || 10 (:945)
     c_h = torch.where(sh.height[j] > 0, sh.height[j], c_rad)  # || radius (:946)
+    fields = shadow_math(t.x[j], t.y[j], c_rad, c_h, t.x[order][:, None], t.y[order][:, None],
+                         li.light_intensity[order][:, None], d2)
+
+    def out(a: torch.Tensor) -> torch.Tensor:
+        a = torch.broadcast_to(a, kept.shape)
+        return torch.nn.functional.pad(a, (0, M - c2, 0, L - l_take)).reshape(-1)
+
+    return ShadowSprites(active=out(kept), **{k: out(v) for k, v in fields.items()})
+
+
+def shadow_math(cx, cy, c_rad, c_h, lx, ly, l_int, d2):
+    """The sprite of each kept caster (particle_worker.js:940-1000): at the
+    caster's feet, away from the light (:962-964), longer with distance and
+    caster height, alpha = intensity / (2 d^2). ``c_rad`` and ``c_h`` are
+    the caster's radius and height after their fallbacks; the light's
+    ``lx``, ``ly``, ``l_int`` broadcast against the casters. One
+    implementation for the single-device pass and the slab steps'
+    (``parallel.halo``), so the two agree bit for bit."""
+    dist = _sqrt(d2)
     dx = cx - lx
     dy = cy - ly
     inv_dist = 1.0 / torch.clamp(dist, min=1e-6)
@@ -137,21 +151,14 @@ def _shadow_rows(world: World, cfg: EngineConfig, order: torch.Tensor, l_valid: 
     dir_y = dy * inv_dist
     height_factor = c_h * 0.025
     dist_ratio = torch.clamp(dist * (1.0 / 256.0), max=1.0)
-
-    def out(a: torch.Tensor) -> torch.Tensor:
-        a = torch.broadcast_to(a, kept.shape)
-        return torch.nn.functional.pad(a, (0, M - c2, 0, L - l_take)).reshape(-1)
-
-    return ShadowSprites(
-        active=out(kept),
-        # at the caster's feet, away from the light (:962-964)
-        x=out(cx - dir_x * c_rad),
-        y=out(cy - dir_y * c_rad),
-        rotation=out(torch.atan2(dy, dx) - _HALF_PI),
-        scale_x=out(c_rad * 0.0714),
-        scale_y=out((0.3 + dist_ratio * 0.9) * height_factor),
-        alpha=out(l_int / torch.clamp(d2 * 2.0, min=1e-6)),
-        radius=out(c_rad),
+    return dict(
+        x=cx - dir_x * c_rad,
+        y=cy - dir_y * c_rad,
+        rotation=_atan2(dy, dx) - _HALF_PI,
+        scale_x=c_rad * 0.0714,
+        scale_y=(0.3 + dist_ratio * 0.9) * height_factor,
+        alpha=l_int / torch.clamp(d2 * 2.0, min=1e-6),
+        radius=c_rad,
     )
 
 

@@ -44,6 +44,16 @@ def _sqrt(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(t.double()).to(t.dtype)
 
 
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 ``atan2`` that depends on its inputs alone: computed in
+    float64 and rounded once to float32, as :func:`_sqrt`. torch's CPU
+    float32 ``atan2`` runs a vectorised approximation over the body of a
+    tensor and the scalar libm over its tail, so one pair of inputs rounds
+    differently by its position (one ulp), and the slab steps' chunks would
+    part from the single-device step's one tensor."""
+    return torch.atan2(y.double(), x.double()).to(y.dtype)
+
+
 def _pair_hash_dir(
     i: torch.Tensor, j: torch.Tensor, salt: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,7 +144,7 @@ def update_derived(world: World, cfg: EngineConfig) -> World:
     t, rb = world.transform, world.rigid_body
     on = t.active & rb.active
     speed = _sqrt(rb.vx * rb.vx + rb.vy * rb.vy)
-    angle = torch.atan2(rb.vy, rb.vx) + float(np.float32(math.pi / 2))
+    angle = _atan2(rb.vy, rb.vx) + float(np.float32(math.pi / 2))
     return world.replace(
         rigid_body=rb.replace(
             speed=torch.where(on, speed, rb.speed),

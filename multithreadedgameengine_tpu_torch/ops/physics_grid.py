@@ -754,27 +754,34 @@ def _grid_pass_xla(gx, gy, attrs, salt: int, strength: float):
     another order than K3's. Returns (disp_x, disp_y, count), 0 on the
     border."""
     rows, cols, cap = gx.shape
-    R, C = rows - 2, cols - 2
-    ctr = (slice(1, R + 1), slice(1, C + 1))
-    grad = attrs[..., 0]
-    pk = attrs[..., 1].to(torch.int32)
-    gid = attrs[..., 2].to(torch.int32)
+    flat = lambda a: a.reshape(rows * cols, cap)  # noqa: E731
+    grad = flat(attrs[..., 0])
+    pk = flat(attrs[..., 1].to(torch.int32))
+    gid = flat(attrs[..., 2].to(torch.int32))
+    xf, yf = flat(gx), flat(gy)
     g_coll, g_trig, g_static = (pk & 1) == 1, (pk & 2) != 0, (pk & 4) != 0
+    # the interior cells holding a collider, as flat indices: every other
+    # cell gets nothing, so only these are computed (each slot's sums run
+    # as in the dense computation)
+    coll = g_coll.any(1).view(rows, cols).clone()
+    coll[0], coll[-1], coll[:, 0], coll[:, -1] = False, False, False, False
+    cidx = torch.nonzero(coll.flatten()).flatten()
 
-    xs, ys, rs = gx[ctr][..., None], gy[ctr][..., None], grad[ctr][..., None]
-    ok_i, trig_i = g_coll[ctr][..., None], g_trig[ctr][..., None]
-    st_i, id_i = g_static[ctr][..., None], gid[ctr][..., None]
-    disp_x = torch.zeros((R, C, cap), dtype=torch.float32, device=gx.device)
-    disp_y = torch.zeros_like(disp_x)
-    sub_cnt = torch.zeros((R, C, cap), dtype=torch.int32, device=gx.device)
+    xs, ys, rs = xf[cidx][..., None], yf[cidx][..., None], grad[cidx][..., None]
+    ok_i, trig_i = g_coll[cidx][..., None], g_trig[cidx][..., None]
+    st_i, id_i = g_static[cidx][..., None], gid[cidx][..., None]
+    n = cidx.shape[0]
+    acc_x = torch.zeros((n, cap), dtype=torch.float32, device=gx.device)
+    acc_y = torch.zeros_like(acc_x)
+    acc_c = torch.zeros((n, cap), dtype=torch.int32, device=gx.device)
     J = next(j for j in (8, 4, 2, 1) if cap % j == 0)
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
-            nbr = (slice(1 + dr, R + 1 + dr), slice(1 + dc, C + 1 + dc))
-            xn, yn, rn = gx[nbr], gy[nbr], grad[nbr]
-            okn, trign, stn, idn = g_coll[nbr], g_trig[nbr], g_static[nbr], gid[nbr]
+            nb = cidx + dr * cols + dc
+            xn, yn, rn = xf[nb], yf[nb], grad[nb]
+            okn, trign, stn, idn = g_coll[nb], g_trig[nb], g_static[nb], gid[nb]
             for c0 in range(0, cap, J):
-                sl = (Ellipsis, None, slice(c0, c0 + J))  # [R, C, 1, J]
+                sl = (Ellipsis, None, slice(c0, c0 + J))  # [n, 1, J]
                 ok = ok_i & okn[sl] & (id_i != idn[sl])
                 dx = xs - xn[sl]
                 dy = ys - yn[sl]
@@ -798,12 +805,16 @@ def _grid_pass_xla(gx, gy, attrs, salt: int, strength: float):
                 push_x = torch.where(zero, ux * zshare, dx * inv_dist * corr)
                 push_y = torch.where(zero, uy * zshare, dy * inv_dist * corr)
                 ov = overlap.to(torch.float32)
-                disp_x = disp_x + torch.sum(push_x * ov, dim=-1)
-                disp_y = disp_y + torch.sum(push_y * ov, dim=-1)
-                sub_cnt = sub_cnt + torch.sum(overlap, dim=-1, dtype=torch.int32)
-    pad = (0, 0, 1, 1, 1, 1)
-    return (torch.nn.functional.pad(disp_x, pad), torch.nn.functional.pad(disp_y, pad),
-            torch.nn.functional.pad(sub_cnt, pad))
+                acc_x = acc_x + torch.sum(push_x * ov, dim=-1)
+                acc_y = acc_y + torch.sum(push_y * ov, dim=-1)
+                acc_c = acc_c + torch.sum(overlap, dim=-1, dtype=torch.int32)
+    disp_x = torch.zeros_like(gx)
+    disp_y = torch.zeros_like(gy)
+    count = torch.zeros(gx.shape, dtype=torch.int32, device=gx.device)
+    disp_x.view(rows * cols, cap)[cidx] = acc_x
+    disp_y.view(rows * cols, cap)[cidx] = acc_y
+    count.view(rows * cols, cap)[cidx] = acc_c
+    return disp_x, disp_y, count
 
 
 def solver_substep(st: GridSolverState, cfg: EngineConfig, salt: int) -> GridSolverState:

@@ -13,11 +13,13 @@ an explicit copy between slab buffers:
   :meth:`SlabMesh.shift_down` and :meth:`SlabMesh.shift_up`, a copy of each
   slab's edge row into its neighbour's border row, zeros for a slab that
   receives nothing (the world's top and bottom);
-- ``jax.lax.psum``: :meth:`SlabMesh.psum`, a sum over slabs.
+- ``jax.lax.psum``: :meth:`SlabMesh.psum`, a sum over slabs;
+- ``jax.lax.all_gather(x, axis)``: :meth:`SlabMesh.all_gather`, the slabs'
+  parts stacked in slab order.
 
 It is deterministic, cannot hang, and runs on one card. A
 ``torch.distributed`` (NCCL) mesh for a host with several cards, one slab
-per process, would offer the same three methods over its collectives and
+per process, would offer the same methods over its collectives and
 call the same per-slab functions of ``parallel.halo`` (ROADMAP).
 """
 
@@ -76,6 +78,13 @@ class SlabMesh:
         """Each slab's part to the next lower slab (``_edge_perms``' up
         permutation); the last slab receives zeros."""
         return self.ppermute(parts, _edge_perms(self.n_slabs)[1])
+
+    def all_gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The slabs' parts stacked in slab order, ``[D, ...]``: what every
+        slab of the reference receives from ``all_gather(x, axis)``, so
+        ``.reshape(-1, ...)`` reads as it does there."""
+        self._check(parts)
+        return torch.stack(list(parts))
 
     def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum over slabs, in the values' own dtype."""

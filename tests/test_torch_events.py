@@ -674,10 +674,25 @@ def test_predators_events_pool_canvas_positions(predator_runs):
 # ---------------------------------------------------------------------------
 
 def test_halo_step_refuses_events_naming_item_14():
+    """Collision events run under the slab steps since slice E2
+    (``tests/test_torch_halo_mixed.py``); screen events stay refused by both:
+    the reference's slab steps compute none, and an empty table handed back
+    would lose every transition (ROADMAP §3, a kept difference)."""
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
-    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
+    from multithreadedgameengine_tpu_torch.parallel import (
+        make_halo_step,
+        make_homed_step,
+        make_mesh,
+    )
 
     eng = make_balls_engine(n_balls=255, seed=1, device="cpu", world_width=800.0,
                             world_height=600.0, logic=dict(screen_events=True))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_halo_step(eng, make_mesh(4, "cpu"))
+    for make in (make_halo_step, make_homed_step):
+        with pytest.raises(NotImplementedError, match="screen_events under the halo and homed"):
+            make(eng, make_mesh(4, "cpu"))
+    eng = make_balls_engine(n_balls=255, spawn=True, seed=1, device="cpu", world_width=800.0,
+                            world_height=600.0, logic=dict(collision_events=True))
+    eng._flush_pending()
+    step, place = make_halo_step(eng, make_mesh(4, "cpu"))
+    chunks, metrics = step(place(eng.world), eng.input.snapshot("cpu"))
+    assert int(metrics["active_count"]) == 256

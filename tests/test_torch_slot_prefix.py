@@ -48,7 +48,7 @@ def test_halo_slab_grids_fill_slots_in_order():
     sent = [halo.slab_solver_rows(ch, plan, d) for d, ch in enumerate(chunks)]
     recv, _slot, _ovf = halo.route_out(mesh, *zip(*sent), plan.route_cap)
     grids = [halo.slab_grid(r, plan, d)[0] for d, r in enumerate(recv)]
-    halo._fill_border(mesh, grids, plan.slab_geom.rows)
+    halo.fill_border(mesh, grids, [plan.slab_geom.rows] * mesh.n_slabs)
 
     seen_off = 0
     border_occupied = 0

@@ -12,9 +12,12 @@ operating point, camera zoomed out) through ``Engine.step``, the same
 scene with events on (``predators_15k_events``, ``chip_smoke.py`` phase 11:
 ``logic.collision_events``, ``event_chunk`` 60, ``event_overlap``, as the
 JAX ladder's ``rung_predators`` runs it), and the halo
-rungs (``chip_smoke.py`` phases 6 and 8: the 1M balls scene and the
-102,400-boid scene of ``benchmarks/halo_scaling.py`` on 4 slabs of one
-card) through ``parallel.make_halo_step`` -- it warms up, then:
+rungs (``chip_smoke.py`` phases 6, 8 and 12: the 1M balls scene, the
+102,400-boid scene and the 25,600-entity mixed predators scene of
+``benchmarks/halo_scaling.py`` on 4 slabs of one card) through
+``parallel.make_halo_step``, and the 1M balls scene through
+``parallel.make_homed_step`` (``homed_1m_d4``, phase 13) -- it warms up,
+then:
 
 - times three chunks of ``--frames`` frames with the host clock, each
   ending in ``torch.cuda.synchronize`` (profiler off);
@@ -59,11 +62,14 @@ from chip_smoke import (
     HALO_BOIDS_SPATIAL,
     HALO_BOIDS_WORLD,
     HALO_N,
+    HALO_PRED_OVERSUB,
     HALO_SLABS,
     HALO_WORLD,
+    HOMED_HEADROOM,
     LADDER_PHYSICS,
     boids_engine,
     card_name_and_limit,
+    halo_predators_engine,
     neighbor_lists_of,
     predators_engine,
 )
@@ -78,6 +84,9 @@ CELLS = {
     "predators_15k": dict(predators=True),
     "predators_15k_events": dict(predators=True, events=True),
     "halo_boids_102k_d4": dict(boids=HALO_BOIDS_N - 1),
+    "halo_predators_d4": dict(predators=True),
+    "homed_1m_d4": dict(homed=True, n_balls=HALO_N - 1, seed=123456,
+                        world_width=HALO_WORLD[0], world_height=HALO_WORLD[1]),
 }
 
 
@@ -152,26 +161,41 @@ def engine_runner(kw: dict):
 
 
 def halo_runner(kw: dict):
-    """``run(frames)`` through the halo step on ``HALO_SLABS`` slabs."""
+    """``run(frames)`` through the halo step on ``HALO_SLABS`` slabs, or
+    through the homed step (``homed``, headroom ``HOMED_HEADROOM``)."""
     import torch
 
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
-    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
+    from multithreadedgameengine_tpu_torch.parallel import (
+        make_halo_step,
+        make_homed_step,
+        make_mesh,
+    )
 
+    kw = dict(kw)
+    homed = kw.pop("homed", False)
     if "boids" in kw:
         eng = boids_engine("cuda", kw["boids"], HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL)
         oversub = HALO_BOIDS_OVERSUB
+    elif "predators" in kw:
+        eng = halo_predators_engine("cuda")
+        oversub = HALO_PRED_OVERSUB
     else:
         eng = make_balls_engine(device="cuda", **kw)
         oversub = 4.0
     eng._flush_pending()
-    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, "cuda"), oversub=oversub)
-    state = {"chunks": place(eng.world)}
+    mesh = make_mesh(HALO_SLABS, "cuda")
+    if homed:
+        step, place, _unplace, _ctl = make_homed_step(eng, mesh, headroom=HOMED_HEADROOM)
+        state = list(place(eng.world))
+    else:
+        step, place = make_halo_step(eng, mesh, oversub=oversub)
+        state = [place(eng.world)]
     ins = eng.input.snapshot("cuda")
 
     def run(frames):
         for _ in range(frames):
-            state["chunks"], _m = step(state["chunks"], ins)
+            *state[:], _m = step(*state, ins)
         torch.cuda.synchronize()
 
     return run, lambda: {"kernel": "K3", "residency": False, "lazy_frames": 0}, {}
@@ -191,7 +215,8 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run, info, alone = (halo_runner if name.startswith("halo") else engine_runner)(kw)
+    run, info, alone = (halo_runner if name.startswith(("halo", "homed"))
+                        else engine_runner)(kw)
     run(frames)  # warm-up: the first rebin, the kernel build
     walls = []
     for _ in range(3):
