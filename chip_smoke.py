@@ -128,7 +128,35 @@ Phases, each printing one line or more before the last:
 14. phase 12's mixed scene through the homed step (headroom 2), one frame
    under the sync check, against phase 12's halo run of the same frames
    (``[homed_mixed]``: entities, event tables, pool, canvas and shadows
-   identical).
+   identical);
+15. slice D1's main path, BASELINE config 2 as the JAX ladder's
+   ``rung_churn`` runs it (``benchmarks/run_ladder.py:110-160``): the demo
+   scene, 5 frames, then plans whose every frame despawns 256 active balls
+   and spawns 256 (``np.random.default_rng(7)``, x in [100, 8900], y in
+   [100, 1000]) through ``FramePlan`` and ``Engine.run_plan`` in chunks of
+   30: two warm plans of 30 frames (the first with every frame and its op
+   table's upload under ``set_sync_debug_mode("error")``), then three timed
+   plans of 60 frames, each timed from building the plan to a sync
+   (``[churn_10k]``: steps/s median and quartiles, the host's plan-building
+   and ``run_plan`` seconds, K1 and K2 launches over the timed frames,
+   overflow, the pool's and the device's active counts); beside it the same
+   scene through ``Engine.step`` without churn, timed the same way;
+16. 400 balls churning 16 a frame for 8 frames through a plan in chunks of
+   4 on the card, against the same ops issued as ``despawn_batch`` +
+   ``spawn_batch`` + ``step(1)`` on the card (bit-equal, free lists equal)
+   and against the plan on the CPU (integers exact, positions within 8
+   ulps; ``[plan_vs_immediate]``);
+17. phase 5's 100k scene with the ladder's knobs and the mouse down: a
+   sparse plan (256 despawns and spawns on frames 0 and 5 of 12, chunks of
+   6) and a dense one (every frame of 8, chunks of 4), each with residency
+   on and off, bit-equal, with the kernel the gate picked and its launches
+   (``[plan_resident_100k]``);
+18. the 400-prey event scene through a plan of 8 frames in chunks of 4,
+   every frame under the sync check, against ``step(1)`` per frame: hook
+   calls, emissions, tables and entities identical (``[plan_events]``);
+19. the demo scene saved at frame 10 and stepped 15 more, against a fresh
+   engine loaded from the file and stepped 15: bit-equal, and the next
+   ``rng()`` equal (``[checkpoint]``).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -141,6 +169,7 @@ This script imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -194,6 +223,13 @@ EV_CHUNK_FRAMES = 12
 HALO_PRED_N, HALO_PRED_OVERSUB, HALO_PRED_WARMUP, HALO_PRED_FRAMES = 25_600, 2.5, 3, 20
 HOMED_HEADROOM, HOMED_MIXED_HEADROOM = 1.125, 2.0
 HALO_EVENT_SLABS = 3
+# slice D1: BASELINE config 2, the JAX ladder's churn rung (run_ladder.py:
+# 110-160): despawns and spawns a frame, plan chunk, warm-up plans of one
+# chunk, timed plans and their frames; and the small churn of phase 16
+CHURN, CHURN_CHUNK, CHURN_WARM_PLANS, CHURN_PLANS, CHURN_FRAMES = 256, 30, 2, 3, 60
+SMALL_CHURN = dict(balls=400, frames=8, churn=16, chunk=4)
+PLAN_REF_ULPS = 8
+PLAN_EVENT_FRAMES, PLAN_EVENT_CHUNK = 8, 4
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -1982,6 +2018,299 @@ def homed_mixed_phase(dev, halo_run):
     return k3
 
 
+# ---------------------------------------------------------------------------
+# slice D1: frame plans and the rest of the host API
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def guarded_plan_frames(eng):
+    """Every frame of every plan chunk run inside the block, and its op
+    table's upload, under ``set_sync_debug_mode("error")``: the chunk's
+    upload, scatters, frames and event-log writes may not wait for the
+    card. Yields {"frames": the count of guarded frames}."""
+    from multithreadedgameengine_tpu_torch import engine as engine_mod
+
+    count = {"frames": 0}
+    saved = (engine_mod._scatter_columns, engine_mod._EventLog.write)
+    one_step = eng._one_step
+
+    def frame(*args, **kw):
+        count["frames"] += 1
+        return no_host_reads(one_step)(*args, **kw)
+
+    eng._one_step = frame
+    eng._plan_chunk_tables = no_host_reads(eng._plan_chunk_tables)
+    engine_mod._scatter_columns = no_host_reads(saved[0])
+    engine_mod._EventLog.write = no_host_reads(saved[1])
+    try:
+        yield count
+    finally:
+        engine_mod._scatter_columns, engine_mod._EventLog.write = saved
+        del eng._one_step, eng._plan_chunk_tables
+
+
+def churn_frames(eng, rng, count, churn, chunk, world=(8900.0, 1000.0)):
+    """``rung_churn``'s ``run_frames``: a plan of ``count`` frames, each
+    despawning ``churn`` active balls and spawning as many at x in
+    [100, world[0]], y in [100, world[1]], run in chunks of ``chunk``.
+    Returns (seconds building the plan, seconds in ``run_plan``)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    plan = eng.begin_plan()
+    for _ in range(count):
+        active = eng.active_indices("Ball")
+        plan.despawn_batch(rng.choice(active, size=min(churn, active.size), replace=False))
+        plan.spawn_batch("Ball", churn,
+                         x=rng.uniform(100, world[0], churn).astype(np.float32),
+                         y=rng.uniform(100, world[1], churn).astype(np.float32))
+        plan.next_frame()
+    t1 = time.perf_counter()
+    eng.run_plan(plan, max_chunk=chunk)
+    return t1 - t0, time.perf_counter() - t1
+
+
+def quartiles(values):
+    q = statistics.quantiles(values, n=4, method="inclusive")
+    return {"median": statistics.median(values), "q1": q[0], "q3": q[2]}
+
+
+def churn_phase(dev):
+    """Phase 15: BASELINE config 2 as ``rung_churn`` runs it, beside the
+    same scene through ``Engine.step`` without churn. Returns K1's launches
+    over the timed frames."""
+    import numpy as np
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev)
+    eng.step(5, block=True)
+    rng = np.random.default_rng(7)
+    with guarded_plan_frames(eng) as guard:
+        churn_frames(eng, rng, CHURN_CHUNK, CHURN, CHURN_CHUNK)
+    for _ in range(CHURN_WARM_PLANS - 1):
+        churn_frames(eng, rng, CHURN_CHUNK, CHURN, CHURN_CHUNK)
+    eng.sync()
+    zero_counts()
+    rates, build_s, run_s = [], [], []
+    for _ in range(CHURN_PLANS):
+        t0 = time.perf_counter()
+        b, r = churn_frames(eng, rng, CHURN_FRAMES, CHURN, CHURN_CHUNK)
+        eng.sync()
+        rates.append(CHURN_FRAMES / (time.perf_counter() - t0))
+        build_s.append(b)
+        run_s.append(r)
+    k1, k2, k3 = read_counts()
+    timed = CHURN_PLANS * CHURN_FRAMES
+    subs = eng.config.physics.sub_step_count
+    overflow = int(eng.metrics["solver_overflow"].item())
+    pool = eng.get_pool_stats("Ball")
+    w = eng.world
+    ok = finite(w)
+    device_active = int(w.transform.active.sum().item())
+    del eng, w
+    # the same scene and frames through Engine.step, no churn
+    still = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev)
+    still.step(5, block=True)
+    still.step(CHURN_CHUNK * CHURN_WARM_PLANS, block=True)
+    still_rates = []
+    for _ in range(CHURN_PLANS):
+        t0 = time.perf_counter()
+        still.step(CHURN_FRAMES)
+        still.sync()
+        still_rates.append(CHURN_FRAMES / (time.perf_counter() - t0))
+    del still
+    churn_q, still_q = quartiles(rates), quartiles(still_rates)
+    log("churn_10k", card=repr(card_name_and_limit()), balls=N_MAIN, churn=CHURN,
+        plan_chunk=CHURN_CHUNK, timed_plans=CHURN_PLANS, frames_per_plan=CHURN_FRAMES,
+        steps_per_s=json.dumps(churn_q).replace(" ", ""),
+        steps_per_s_runs=json.dumps(rates).replace(" ", ""),
+        plan_build_s=json.dumps(build_s).replace(" ", ""),
+        run_plan_s=json.dumps(run_s).replace(" ", ""),
+        no_churn_steps_per_s=json.dumps(still_q).replace(" ", ""),
+        churn_over_no_churn=churn_q["median"] / still_q["median"],
+        k1_launches=k1, expected_k1=timed * subs, k2_launches=k2, k3_launches=k3,
+        solver_overflow=overflow, pool_active=pool["active"], device_active=device_active,
+        frames_without_host_reads=guard["frames"], finite=ok)
+    check(ok, "churn_10k: non-finite positions")
+    check(k1 == timed * subs and k2 == 0 and k3 == 0,
+          f"churn_10k: K1 {k1}, K2 {k2}, K3 {k3} launches; expected {timed * subs}, 0, 0")
+    check(pool["active"] == N_MAIN and device_active == N_MAIN + 1,
+          f"churn_10k: the population moved: pool {pool}, device {device_active}")
+    check(guard["frames"] == CHURN_CHUNK, f"churn_10k: {guard['frames']} guarded frames")
+    check(overflow == 0, f"churn_10k: solver_overflow {overflow}")
+    torch.cuda.empty_cache()
+    return k1
+
+
+def small_churn(dev, mode):
+    """Phase 16's scene: phase 3's 400 balls (1200 x 800), churning
+    ``SMALL_CHURN`` through a plan or through immediate ops."""
+    import numpy as np
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    c = SMALL_CHURN
+    eng = make_balls_engine(n_balls=c["balls"], seed=SEED, device=dev, world_width=1200.0,
+                            world_height=800.0)
+    eng.step(2, block=True)
+    rng = np.random.default_rng(7)
+    if mode == "plan":
+        churn_frames(eng, rng, c["frames"], c["churn"], c["chunk"], (1100.0, 700.0))
+    else:
+        for _ in range(c["frames"]):
+            active = eng.active_indices("Ball")
+            eng.despawn_batch(rng.choice(active, size=c["churn"], replace=False))
+            eng.spawn_batch("Ball", c["churn"],
+                            x=rng.uniform(100, 1100.0, c["churn"]).astype(np.float32),
+                            y=rng.uniform(100, 700.0, c["churn"]).astype(np.float32))
+            eng.step(1)
+    free = {n: list(map(int, r.pool.free)) for n, r in eng.classes.items()}
+    return eng.snapshot(), free
+
+
+def plan_vs_immediate(dev):
+    """Phase 16: a churning plan on the card against the same ops issued
+    immediately on the card (bit-equal), and against the plan on the CPU
+    (integers exact, positions within ``PLAN_REF_ULPS`` ulps)."""
+    import numpy as np
+
+    zero_counts()
+    (plan, free_p), (imm, free_i) = small_churn(dev, "plan"), small_churn(dev, "immediate")
+    k1, _k2, _k3 = read_counts()
+    cpu, free_c = small_churn("cpu", "plan")
+    diff = world_diff(plan, imm, replicated=False)
+    tol = PLAN_REF_ULPS * float(np.spacing(np.float32(1200.0)))
+    vs_cpu = world_diff(plan.map_tensors(lambda a: a.cpu()), cpu, replicated=False)
+    floats = {k: v for k, v in vs_cpu.items() if isinstance(v, float)}
+    ints = {k: v for k, v in vs_cpu.items() if not isinstance(v, float)}
+    err = max(floats.values(), default=0.0)
+    log("plan_vs_immediate", **SMALL_CHURN, bit_equal_with_immediate=not diff,
+        free_lists_equal=free_p == free_i, max_abs_err_vs_cpu=err, int_fields_differ=len(ints),
+        tol=tol, k1_launches=k1, contacts=int(plan.rigid_body.collision_count.sum().item()))
+    check(not diff and free_p == free_i, f"plan_vs_immediate: the plan differs: {diff}")
+    check(not ints and err <= tol and free_p == free_c,
+          f"plan_vs_immediate: the card differs from the CPU: {vs_cpu}")
+    return k1
+
+
+def plan_resident_100k(dev):
+    """Phase 17: phase 5's 100k scene with the ladder's knobs, a sparse and
+    a dense churning plan, each with residency on and off: bit-equal."""
+    import numpy as np
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    cases = {"sparse": (12, (0, 5), 6), "dense": (8, range(8), 4)}
+    world = (CHECK_WORLD[0] - 100.0, CHECK_WORLD[1] - 100.0)
+    out, launches = {}, {}
+    for name, (frames, op_frames, chunk) in cases.items():
+        snaps = {}
+        for residency in ("on", "off"):
+            e = make_balls_engine(n_balls=CHECK_N, seed=SEED, device=dev,
+                                  world_width=CHECK_WORLD[0], world_height=CHECK_WORLD[1],
+                                  physics=dict(LADDER_PHYSICS, position_residency=residency))
+            e.input.set_mouse(14_000.0, 6000.0)
+            e.input.mouse_button(0, True)
+            e.step(3, block=True)
+            rng = np.random.default_rng(5)
+            zero_counts()
+            plan = e.begin_plan()
+            for f in range(frames):
+                if f in op_frames:
+                    active = e.active_indices("Ball")
+                    plan.despawn_batch(rng.choice(active, size=CHURN, replace=False))
+                    plan.spawn_batch("Ball", CHURN,
+                                     x=rng.uniform(100, world[0], CHURN).astype(np.float32),
+                                     y=rng.uniform(100, world[1], CHURN).astype(np.float32))
+                plan.next_frame()
+            e.run_plan(plan, max_chunk=chunk)
+            e.sync()
+            launches[(name, residency)] = read_counts()[:2]
+            check(e._plan.residency == (residency == "on"), f"plan_resident_100k: {residency}")
+            snaps[residency] = (e.snapshot(), e.get_pool_stats("Ball"), e._plan.symmetric)
+            del e
+        (a, pa, sym), (b, pb, _sym) = snaps["on"], snaps["off"]
+        out[name] = (world_diff(a, b, replicated=False), pa == pb, sym)
+    log("plan_resident_100k", balls=CHECK_N, churn=CHURN,
+        bit_equal=json.dumps({k: not v[0] for k, v in out.items()}).replace(" ", ""),
+        pools_equal=all(v[1] for v in out.values()),
+        kernel="K2" if out["sparse"][2] else "K1",
+        launches=json.dumps({f"{k}_{r}": v for (k, r), v in launches.items()}).replace(" ", ""))
+    check(all(not v[0] and v[1] for v in out.values()),
+          f"plan_resident_100k: residency on and off differ: { {k: v[0] for k, v in out.items()} }")
+    return launches
+
+
+def plan_events(dev):
+    """Phase 18: the 400-prey event scene through a plan of
+    ``PLAN_EVENT_FRAMES`` frames in chunks of ``PLAN_EVENT_CHUNK`` (every
+    frame under the sync check), against ``step(1)`` per frame: the same
+    hook calls, emissions, tables and entities."""
+    runs = {}
+    for mode in ("plan", "per_frame"):
+        eng, calls, emits = events_scene(dev, PLAN_EVENT_CHUNK if mode == "plan" else 1)
+        if mode == "plan":
+            zero_counts()
+            plan = eng.begin_plan()
+            for _ in range(PLAN_EVENT_FRAMES):
+                plan.next_frame()
+            with guarded_plan_frames(eng) as guard:
+                eng.run_plan(plan, max_chunk=PLAN_EVENT_CHUNK)
+            eng.sync()
+            k1 = read_counts()[0]
+        else:
+            for _ in range(PLAN_EVENT_FRAMES):
+                eng.step(1)
+        runs[mode] = (calls, emits, event_tables(eng), eng.snapshot())
+    (cp, ep, tp, wp), (cf, ef, tf, wf) = runs["plan"], runs["per_frame"]
+    diff = world_diff(wp, wf, replicated=False)
+    log("plan_events", frames=PLAN_EVENT_FRAMES, plan_chunk=PLAN_EVENT_CHUNK, dispatches=len(cf),
+        hook_calls_identical=cp == cf, emits_identical=ep == ef, tables_identical=tp == tf,
+        entities_identical=not diff, frames_without_host_reads=guard["frames"], k1_launches=k1)
+    check(cp == cf and ep == ef and tp == tf and cf,
+          "plan_events: hook calls, emissions or tables differ from step(1)")
+    check(not diff, f"plan_events: entities differ: {diff}")
+    check(guard["frames"] == PLAN_EVENT_FRAMES,
+          f"plan_events: {guard['frames']} guarded frames")
+    return k1
+
+
+def checkpoint_phase(dev):
+    """Phase 19: the 10k scene saved at frame 10 and stepped 15 more,
+    against a fresh engine loaded from the file and stepped 15: bit-equal,
+    and the next ``rng()`` equal."""
+    from pathlib import Path
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    zero_counts()
+    a = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev)
+    a.step(10)
+    t0 = time.perf_counter()
+    a.save_checkpoint(str(path))
+    save_s = time.perf_counter() - t0
+    a.step(15)
+    b = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    b.load_checkpoint(str(path))
+    load_s = time.perf_counter() - t0
+    b.step(15)
+    k1 = read_counts()[0]
+    diff = world_diff(a.snapshot(), b.snapshot(), replicated=False)
+    same_rng = a.rng() == b.rng()
+    size = path.stat().st_size
+    path.unlink()
+    log("checkpoint", balls=N_MAIN, saved_at=10, then=15, bit_equal=not diff,
+        next_rng_equal=same_rng, file_bytes=size, save_s=save_s, load_s=load_s,
+        k1_launches=k1)
+    check(not diff and same_rng, f"checkpoint: the resumed run differs: {diff}")
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -2208,6 +2537,14 @@ def main() -> int:
     k3_homed_mixed = homed_mixed_phase(dev, halo_run)
     del halo_run
 
+    # 15-19. slice D1: BASELINE config 2 through run_plan, then the plan
+    # against immediate ops, residency on and off, events and checkpoints
+    k1_churn = churn_phase(dev)
+    k1_plan_small = plan_vs_immediate(dev)
+    plan_100k = plan_resident_100k(dev)
+    k1_plan_events = plan_events(dev)
+    k1_checkpoint = checkpoint_phase(dev)
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -2223,12 +2560,18 @@ def main() -> int:
                "ms_1m": k1_ms_1m, "plain_ms_1m": k1_plain_1m,
                "bound_ms_1m": bound_1m["K1"][0], "launches_boids_15k": k1_boids,
                **k1_boids_timing, "launches_predators_15k": k1_pred, **k1_pred_timing,
-               "launches_predators_events": k1_events}),
+               "launches_predators_events": k1_events, "launches_churn_10k": k1_churn,
+               "launches_plan_vs_immediate": k1_plan_small,
+               "launches_plan_resident_100k": {f"{k}_{r}": v[0] for (k, r), v in
+                                               plan_100k.items()},
+               "launches_plan_events": k1_plan_events, "launches_checkpoint": k1_checkpoint}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],
               {"shape": big_shape, "shape_10k": demo_shape, "ms_10k": k2_ms_10k,
-               "plain_ms_10k": k2_plain_10k, "bound_ms_10k": bound_10k["K2"][0]}),
+               "plain_ms_10k": k2_plain_10k, "bound_ms_10k": bound_10k["K2"][0],
+               "launches_plan_resident_100k": {f"{k}_{r}": v[1] for (k, r), v in
+                                               plan_100k.items()}}),
         entry("K3", ck.pair_pass_grid, "multithreadedgameengine_tpu_torch/csrc/pair_pass_grid.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:793", halo["launches"],
               halo["ms"], halo["plain_ms"], halo["bound"],

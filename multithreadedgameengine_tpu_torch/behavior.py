@@ -489,7 +489,6 @@ def run_logic_phase_masked(
     cfg: EngineConfig,
     type_specs: Sequence[Tuple[type, int]],
     payload_channels: Optional[Dict[str, int]] = None,
-    row_ids: Optional[torch.Tensor] = None,
     gather_fn=None,
 ) -> Tuple[World, List[Dict[str, Any]]]:
     """:func:`run_logic_phase` for rows in arbitrary order (the reference's
@@ -499,9 +498,8 @@ def run_logic_phase_masked(
     and is merged under ``active & entity_type == id``; writes apply after
     every class ran; ``"despawn"`` clears the active flags.
 
-    ``row_ids``: the rows' global entity ids, handed to the tick as
-    ``ctx.i`` (default ``arange``; the reference hands local row indices).
-    ``gather_fn``: the resolver of ``ctx.gather`` for global neighbour ids
+    A tick sees ``ctx.i`` as the local row index (behavior.py:758), not
+    the row's global id. ``gather_fn``: the resolver of ``ctx.gather`` for global neighbour ids
     (the halo step's, over the home chunks). Returns (world, emissions),
     each class's ``"emit"`` block over all rows, live where the class's
     mask is (behavior.py:790-793)."""
@@ -510,8 +508,7 @@ def run_logic_phase_masked(
     despawn = None
     n = world.transform.x.shape[0]
     device = world.device
-    if row_ids is None:
-        row_ids = torch.arange(n, dtype=torch.int32, device=device)
+    row_ids = torch.arange(n, dtype=torch.int32, device=device)
     view = _entity_view(world, 0, n)
     payload = nbr.payload.data
     for klass, type_id in type_specs:

@@ -204,6 +204,10 @@ class ParticleEmitterAPI:
         cols["stay_on_the_floor"] = np.full((n,), bool(stay_on_the_floor))
         return cols
 
+    def clear(self) -> None:
+        """Drop queued emissions (``Engine.destroy``)."""
+        self._pending.clear()
+
     def build_batch(self):
         """Drain the queue into one batch of numpy columns padded to a
         bucket size, and its real row count: (batch, n), or (None, 0) when

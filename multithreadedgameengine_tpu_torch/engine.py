@@ -1,10 +1,16 @@
 """The Engine — host orchestrator and Scene API, on the card by default.
 
-PyTorch counterpart of the core of ``multithreadedgameengine_tpu/engine.py``:
+PyTorch counterpart of ``multithreadedgameengine_tpu/engine.py``:
 entity-class registration with parent-chain registration, ``init``, the
 spawn/despawn control plane (``spawn``, ``spawn_batch``, ``despawn``,
-``_apply_columns``), ``step(n)``, ``snapshot``/``restore``, ``stats``,
-``update_physics_config``, the Mouse as entity 0 and ``apply_inputs``.
+``despawn_batch``, ``despawn_all``, ``active_indices``; each split, as in
+the reference, into a half that claims or releases slots and builds the
+writes and a half that scatters them), ``step(n)``, frame plans
+(:class:`FramePlan`, ``begin_plan``, ``run_plan``), ``pause``/``resume``,
+``destroy``, ``snapshot``/``restore``, checkpoints, ``stats`` with the step
+timer, the timeline and the phase profiler (``profiling``), the debug
+flags (``debugging``), ``update_physics_config``, the Mouse as entity 0
+and ``apply_inputs``.
 
 One frame (the reference's ``one_step_impl`` with the grid solver,
 engine.py:1460-1824), run eagerly:
@@ -47,6 +53,15 @@ Host-side, ``Engine.sprites`` is the sprite registry (``assets``) and
 ``Engine.emitter`` the particle emitter (``emitter``), whose queue lands in
 the pool before each ``step`` (``_flush_emissions``).
 
+A frame plan queues each frame's spawns, despawns and input snapshot on
+the host, claiming slots and drawing the seeded stream as it is built;
+``run_plan`` runs it in chunks, each chunk an eager loop of full frames
+whose op table and input timeline reach the card in one copy, with no host
+read inside the chunk (engine.py:2330-2488; the reference's compiled chunk
+program exists for XLA). A chunk in which any frame writes rebins on every
+frame, and a chunk whose frames mostly write runs off the resident layout,
+as the reference's do.
+
 The plan (``_build_plan``, the reference's ``_build_step``) resolves what
 the reference resolves before tracing: the solver geometry; solver "auto"
 as "pallas", the resident solver; the pair kernel (K1, or K2 where the
@@ -72,7 +87,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from collections import OrderedDict, deque
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -94,9 +109,11 @@ from .behavior import (
     snake_case,
     write_field,
 )
+from . import checkpoint
 from .assets import SpriteRegistry
 from .components import Collider, LightEmitter, MouseComponent
 from .config import EngineConfig, make_config
+from .debugging import Debug
 from .emitter import ParticleEmitterAPI, batch_to_device
 from .inputs import InputController, InputState
 from .ops.culling import update_entity_visibility, update_particle_visibility
@@ -120,6 +137,7 @@ from .ops.spatial import (
     neighbor_lists,
     neighbor_lists_by_class,
 )
+from .profiling import PhaseProfiler, StepTimer, TimelineLog
 from .render.extract import advance_animation
 from .rng import Mulberry32
 from .state import EntityPool, World, make_world, scatter_fields
@@ -330,6 +348,111 @@ def _kind_table(world: World, tag: str, cap: int):
     return packed[2 + full:2 + full + cap, None], packed[1]
 
 
+class FramePlan:
+    """Per-frame spawns, despawns and inputs queued on the host, run by
+    :meth:`Engine.run_plan` in chunks of frames (engine.py:173-279). Each
+    frame applies its writes and its input snapshot, then steps.
+
+    Slots are claimed, ``on_spawned``/``on_despawned`` hooks fire and the
+    seeded stream is drawn when the plan is built, in call order, exactly as
+    the immediate calls do; the world writes land when the plan runs. Usage::
+
+        plan = eng.begin_plan()
+        for f in range(60):
+            plan.despawn_batch(victims(f))
+            plan.spawn_batch("Ball", 256, x=..., y=...)
+            eng.input.set_mouse(...)        # optional: per-frame inputs
+            plan.next_frame()               # frame boundary (captures input)
+        eng.run_plan(plan)
+
+    Do not interleave immediate ``spawn``/``despawn``/``step`` calls with
+    building a plan: its writes land after any immediate ones."""
+
+    def __init__(self, engine: "Engine"):
+        self.engine = engine
+        # per finished frame: ({path: (int32 idx, float32 vals)}, host InputState)
+        self.frames: List[Tuple[Dict[str, Tuple[np.ndarray, np.ndarray]], InputState]] = []
+        self._cur: List[Dict[str, Tuple[np.ndarray, np.ndarray]]] = []
+        self._cur_ops: List[Tuple[str, Any, Any]] = []
+
+    def spawn(self, class_name: str, **spawn_config) -> Optional[int]:
+        op = self.engine._spawn_op(class_name, spawn_config, auto_reconcile=False)
+        if op is None:
+            return None
+        i, updates = op
+        self._cur_ops.append(("spawn", i, updates))
+        return i
+
+    def despawn(self, index: int) -> None:
+        if self.engine._despawn_op(index):
+            self._cur_ops.append(("despawn", index, None))
+
+    def spawn_batch(self, class_name: str, count: int, call_on_spawned: bool = True,
+                    **field_arrays) -> np.ndarray:
+        self._flush_singles()
+        idx, columns = self.engine._spawn_batch_columns(
+            class_name, count, call_on_spawned, field_arrays, auto_reconcile=False)
+        if idx.size:
+            self._cur.append({p: (idx, np.asarray(v)) for p, v in columns.items()})
+        return idx
+
+    def despawn_batch(self, indices) -> int:
+        self._flush_singles()
+        released, cols = self.engine._despawn_batch_columns(indices)
+        if cols:
+            self._cur.append({p: (i, np.zeros(i.size, np.float32)) for p, i in cols.items()})
+        return released
+
+    def _flush_singles(self) -> None:
+        if self._cur_ops:
+            ops, self._cur_ops = self._cur_ops, []
+            self._cur.append(self.engine._ops_to_columns(ops))
+
+    def next_frame(self) -> None:
+        """Close the frame: merge its columns, the last write to an index
+        winning (as ``_flush_pending``), and capture the input snapshot on
+        the host."""
+        self._flush_singles()
+        merged: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for colset in self._cur:
+            for path, (i, v) in colset.items():
+                i = np.asarray(i, np.int32)
+                v = np.asarray(v, np.float32)  # float32-exact, see _apply_columns
+                if path in merged:
+                    pi, pv = merged[path]
+                    i, v = np.concatenate([pi, i]), np.concatenate([pv, v])
+                merged[path] = (i, v)
+        final: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for path, (i, v) in merged.items():
+            if i.size > 1:
+                _, last = np.unique(i[::-1], return_index=True)
+                keep = np.sort(i.size - 1 - last)
+                i, v = i[keep], v[keep]
+            final[path] = (i, v)
+        self._cur = []
+        self.frames.append((final, self.engine.input.snapshot("cpu")))
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+
+#: an input snapshot's float32 and bool fields, in the order a plan chunk
+#: packs them (``Engine._plan_chunk_tables``)
+_INPUT_F32 = ("mouse_x", "mouse_y", "camera_x", "camera_y", "camera_zoom")
+_INPUT_BOOL = ("mouse_buttons", "mouse_present", "keys")
+
+
+def _scatter_columns(world: World, columns) -> World:
+    """Scatter {path: (int64 indices, float32 values)}, tensors on the
+    world's device, into the world; each column's values are cast to its
+    field's dtype on the device. No index repeats within a column."""
+    for path, (idx, vals) in columns.items():
+        comp_name, _, field = path.partition(".")
+        comp = scatter_fields(get_component(world, comp_name), idx, {field: vals})
+        world = put_component(world, comp_name, comp)
+    return world
+
+
 @dataclasses.dataclass
 class RegisteredClass:
     cls: type
@@ -454,14 +577,21 @@ class Engine:
         # <= 0 falls back to 100): sizes the banded boundary's drift bound
         self._max_vel_seen = 100.0
         self.metrics: Dict[str, torch.Tensor] = {}
-        self._step_seconds: deque = deque(maxlen=60)
-        self.total_steps = 0
+        self.paused = False
+        self.debug = Debug(self)
+        self.timer = StepTimer()
+        self.timeline = TimelineLog()
+        self.profiler = PhaseProfiler(self)
+        # step() blocks on the card so the timer reads device time
+        self._profiling = False
         # frames that step(n)'s lazy chunk ran without the entity read-back
         self.lazy_frames = 0
         # the event log of the chunk whose hooks have not fired yet
         # (logic.event_overlap): held across step() calls until the next
         # chunk is queued or a barrier flushes it
         self._pending_log: Optional[_EventLog] = None
+
+        self.timeline.log("engine constructed")
 
         # Mouse registered first so entity index 0 is the mouse
         self.register_entity_class(Mouse, 1)
@@ -592,12 +722,28 @@ class Engine:
         the component slots, apply the spawn config and ``on_spawned``, sync
         Verlet px/py, set active. The writes land before the next step.
         Returns the entity index, or None when the pool is exhausted."""
+        op = self._spawn_op(class_name, spawn_config)
+        if op is None:
+            return None
+        i, updates = op
+        self._pending_ops.append(("spawn", i, updates))
+        return i
+
+    def _spawn_op(self, class_name: str, spawn_config: Dict[str, Any],
+                  auto_reconcile: bool = True) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """Claim a slot and build its spawn writes: the half of ``spawn``
+        that :class:`FramePlan` shares (engine.py:615-665).
+        ``auto_reconcile=False`` (a plan) skips the retry after a reconcile:
+        the device does not show the earlier plan frames' spawns yet, so a
+        reconcile would hand their slots out again."""
         self._require_init()
         reg = self.classes[class_name]
         i = reg.pool.claim()
-        if i is None and self.reconcile_pools():
+        if i is None and auto_reconcile and self.reconcile_pools():
             i = reg.pool.claim()
         if i is None:
+            self.timeline.log(f"pool exhausted: no inactive {class_name} available "
+                              f"(all {reg.count} active)")
             return None
 
         updates: Dict[str, Any] = dict(reg.reset_template)
@@ -621,8 +767,7 @@ class Engine:
         updates["transform.active"] = True
         # the solver bounds see a queued spawn at once (engine.py:664)
         self._track_radius(updates)
-        self._pending_ops.append(("spawn", i, updates))
-        return i
+        return i, updates
 
     def spawn_batch(
         self, class_name: str, count: int, call_on_spawned: bool = True,
@@ -635,13 +780,30 @@ class Engine:
         indices (fewer than requested on exhaustion)."""
         self._require_init()
         self._flush_pending()
+        idx, columns = self._spawn_batch_columns(class_name, count, call_on_spawned,
+                                                 field_arrays)
+        if idx.size:
+            self.world = self._apply_columns(
+                self.world, {path: (idx, vals) for path, vals in columns.items()})
+        return idx
+
+    def _spawn_batch_columns(
+        self, class_name: str, count: int, call_on_spawned: bool,
+        field_arrays: Dict[str, Any], auto_reconcile: bool = True,
+    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """Claim up to ``count`` slots and build their columns of writes:
+        the half of ``spawn_batch`` that :class:`FramePlan` shares
+        (engine.py:717-813). Returns (claimed indices, {path: [n] values})."""
         reg = self.classes[class_name]
         claimed = reg.pool.claim_many(count)
-        if claimed.size < count and self.reconcile_pools(exclude=claimed):
+        if claimed.size < count and auto_reconcile and self.reconcile_pools(exclude=claimed):
             claimed = np.concatenate([claimed, reg.pool.claim_many(count - claimed.size)])
         n = int(claimed.size)
+        if n < count:
+            self.timeline.log(f"pool exhausted during spawn_batch({class_name}): "
+                              f"claimed {n} of {count}")
         if n == 0:
-            return np.empty((0,), np.int32)
+            return np.empty((0,), np.int32), {}
         idx = claimed.astype(np.int32)
         columns: Dict[str, np.ndarray] = {}
 
@@ -694,19 +856,116 @@ class Engine:
             columns["rigid_body.px"] = np.asarray(x, np.float64) - np.asarray(vx, np.float64)
             columns["rigid_body.py"] = np.asarray(y, np.float64) - np.asarray(vy, np.float64)
         columns["transform.active"] = np.ones(n, bool)
-        self.world = self._apply_columns(
-            self.world, {path: (idx, vals) for path, vals in columns.items()}
-        )
-        return idx
+        self._track_radius(columns)
+        return idx, columns
 
     def despawn(self, index: int) -> None:
         """Despawn by index (gameObject.js:668-691); a no-op on an index that
         is already free (the reference's double-despawn guard)."""
+        if self._despawn_op(index):
+            self._pending_ops.append(("despawn", index, None))
+
+    def _despawn_op(self, index: int) -> bool:
+        """Release the slot and fire ``on_despawned``: the half of
+        ``despawn`` that :class:`FramePlan` shares (engine.py:823-831)."""
         self._require_init()
         reg = self._class_of_index(index)
-        if reg.pool.release(index):
-            reg.cls.on_despawned(index)
-            self._pending_ops.append(("despawn", index, None))
+        if not reg.pool.release(index):
+            return False
+        reg.cls.on_despawned(index)
+        return True
+
+    def despawn_batch(self, indices) -> int:
+        """Despawn many indices at once (engine.py:833-852): the pools
+        release them and the active flags clear in one set of scatters,
+        with ``despawn``'s double-despawn guard applied setwise and
+        ``on_despawned`` per entity when a class overrides it. Returns how
+        many were released. The free lists end as after the same despawns
+        issued one by one: duplicates count at their first occurrence and
+        each pool takes its indices in the caller's order."""
+        self._require_init()
+        self._flush_pending()
+        released, cols = self._despawn_batch_columns(indices)
+        if cols:
+            self.world = self._apply_columns(self.world, {
+                path: (idx, np.zeros(idx.size, np.float32)) for path, idx in cols.items()})
+        return released
+
+    def _despawn_batch_columns(self, indices) -> Tuple[int, Dict[str, np.ndarray]]:
+        """Release the slots, fire the hooks and return the active-flag
+        columns to clear {path: indices}: the half of ``despawn_batch`` that
+        :class:`FramePlan` shares (engine.py:854-896)."""
+        idxs = np.asarray(indices, np.int64).reshape(-1)
+        if idxs.size > 1:
+            _, first = np.unique(idxs, return_index=True)
+            idxs = idxs[np.sort(first)]
+        cols: Dict[str, List[np.ndarray]] = {}
+        released = 0
+        for reg in self.classes.values():
+            if reg.count == 0:
+                continue
+            in_range = idxs[(idxs >= reg.start_index) & (idxs < reg.start_index + reg.count)]
+            fresh = np.asarray([i for i in in_range if not reg.pool.is_free(int(i))], np.int64)
+            if fresh.size == 0:
+                continue
+            reg.pool.release_many(fresh)
+            released += int(fresh.size)
+            self._despawn_hooks(reg, fresh)
+            self._active_columns(reg, fresh, cols)
+        return released, {path: np.concatenate(parts).astype(np.int32)
+                          for path, parts in cols.items()}
+
+    @staticmethod
+    def _despawn_hooks(reg: RegisteredClass, idxs: np.ndarray) -> None:
+        if reg.cls.on_despawned.__func__ is not EntityClass.on_despawned.__func__:
+            for i in idxs:
+                reg.cls.on_despawned(int(i))
+
+    def _active_paths(self, reg: RegisteredClass) -> List[str]:
+        """The active flags a despawn of ``reg`` clears: the transform's and
+        every one of its components that has one."""
+        return ["transform.active"] + [
+            f"{comp_path}.active" for comp_path in reg.component_paths
+            if hasattr(get_component(self.world, comp_path), "active")]
+
+    def _active_columns(self, reg: RegisteredClass, idxs: np.ndarray,
+                        cols: Dict[str, List[np.ndarray]]) -> None:
+        """Add ``idxs`` to the active-flag columns of ``reg``."""
+        for path in self._active_paths(reg):
+            cols.setdefault(path, []).append(idxs)
+
+    def active_indices(self, class_name: str) -> np.ndarray:
+        """The claimed indices of a class, ascending (the host pool's view;
+        in-step despawns need :meth:`reconcile_pools` first)."""
+        self._require_init()
+        self._flush_pending()
+        return self.classes[class_name].pool.active_indices()
+
+    def despawn_all(self, class_name: Optional[str] = None) -> None:
+        """despawnAllEntities (gameEngine.js:1677, logic_worker.js:654-711),
+        of one class or of all: the mouse (index 0) is never despawned.
+        The pools release in bulk and the flags clear in one scatter per
+        component (engine.py:905-944)."""
+        self._require_init()
+        self._flush_pending()
+        regs = [self.classes[class_name]] if class_name else list(self.classes.values())
+        active = self.world.transform.active.cpu().numpy()
+        cols: Dict[str, List[np.ndarray]] = {}
+        for reg in regs:
+            if reg.cls is Mouse or reg.count == 0:
+                continue
+            sl = slice(reg.start_index, reg.start_index + reg.count)
+            idxs = np.nonzero(active[sl])[0] + reg.start_index
+            if idxs.size == 0:
+                continue
+            reg.pool.release_many(idxs)
+            self._despawn_hooks(reg, idxs)
+            self._active_columns(reg, idxs, cols)
+        if cols:
+            self.world = self._apply_columns(self.world, {
+                path: (np.concatenate(parts).astype(np.int32),
+                       np.zeros(sum(p.size for p in parts), np.float32))
+                for path, parts in cols.items()})
 
     def _class_of_index(self, index: int) -> RegisteredClass:
         for reg in self.classes.values():
@@ -761,12 +1020,7 @@ class Engine:
 
     def _despawn_updates(self, index: int) -> Dict[str, Any]:
         """Per-component active-flag clears for one despawned index."""
-        reg = self._class_of_index(index)
-        updates = {"transform.active": False}
-        for comp_path in reg.component_paths:
-            if hasattr(get_component(self.world, comp_path), "active"):
-                updates[f"{comp_path}.active"] = False
-        return updates
+        return {path: False for path in self._active_paths(self._class_of_index(index))}
 
     def _ops_to_columns(self, ops) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
         """Pending ops -> scatter columns {path: (idx, vals)}, deduped to
@@ -799,12 +1053,10 @@ class Engine:
         for path in ("collider.radius", "rigid_body.max_vel"):
             if path in columns:
                 self._track_radius({path: columns[path][1]})
-        for path, (np_idx, np_vals) in columns.items():
-            comp_name, _, field = path.partition(".")
-            idx = torch.from_numpy(np.asarray(np_idx, np.int64)).to(self.device)
-            vals = torch.from_numpy(np.asarray(np_vals).astype(np.float32)).to(self.device)
-            comp = scatter_fields(get_component(world, comp_name), idx, {field: vals})
-            world = put_component(world, comp_name, comp)
+        world = _scatter_columns(world, {
+            path: (torch.from_numpy(np.asarray(np_idx, np.int64)).to(self.device),
+                   torch.from_numpy(np.asarray(np_vals).astype(np.float32)).to(self.device))
+            for path, (np_idx, np_vals) in columns.items()})
         # host writes invalidate the solver's bin cache: the next frame
         # re-bins, so despawns drop out of the pair search at once and
         # spawns collide from their first frame (engine.py:1093-1102)
@@ -1057,8 +1309,15 @@ class Engine:
                           <= cfg.spatial.cell_size),
         )
 
-    def _one_step(self, world: World, inputs: InputState) -> Tuple[World, Dict[str, torch.Tensor]]:
+    def _one_step(self, world: World, inputs: InputState, residency: Optional[bool] = None
+                  ) -> Tuple[World, Dict[str, torch.Tensor]]:
+        """One full frame. ``residency=False`` runs a resident plan's frame
+        through the entity-order solver (a dense plan chunk, engine.py:
+        1463-1469); the next resident frame finds its layout stale and
+        rebuilds it."""
         plan = self._plan
+        if residency is None:
+            residency = plan.residency
         cfg = plan.cfg
         world = apply_inputs(world, inputs)
         if plan.need_neighbors:  # the frame's neighbour block (engine.py:1472-1518)
@@ -1086,7 +1345,7 @@ class Engine:
         # the candidate rows (288 MB on boids_15k) go before the solver runs
         del nbr
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
-        if plan.residency:
+        if residency:
             world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
                 world, cfg, plan.solver_geom, inputs, plan.force_specs,
                 cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
@@ -1288,7 +1547,7 @@ class Engine:
         transition is lost. A frame stepped alone reads its event counts
         and fires the hooks after it."""
         self._require_init()
-        if n <= 0:
+        if self.paused or n <= 0:
             return self.metrics
         self._check_events_rebuild()
         lg = self.config.logic
@@ -1306,7 +1565,8 @@ class Engine:
         # the plan is built before the queued writes land, as the reference
         # builds its step before flushing (engine.py:2555-2558): the first
         # step's geometry sees the spawns' radii only through _max_radius
-        if self._plan is None:
+        built_now = self._plan is None
+        if built_now:
             self._plan = self._build_plan()
         self._flush_pending()
         if self._plan is None:  # the flush wrote a radius above the bound
@@ -1333,10 +1593,9 @@ class Engine:
             for _ in range(n):
                 world, metrics = self._one_step(world, inputs)
         self.world, self.metrics = world, metrics
-        if block:
+        if block or self._profiling:
             self.sync()
-        self._step_seconds.append((time.perf_counter() - t0) / n)
-        self.total_steps += n
+        self._time_steps(t0, n, built_now)
         if lg.collision_events:
             self._dispatch_collision_events()
         if lg.screen_events:
@@ -1416,9 +1675,162 @@ class Engine:
             else:
                 self._dispatch_logged_events(log)
         self._pending_log = pending
-        self._step_seconds.append((time.perf_counter() - t0) / n)
-        self.total_steps += n
+        self._time_steps(t0, n)
         return metrics
+
+    def _time_steps(self, t0: float, n: int, built_now: bool = False) -> None:
+        """Record ``n`` frames enqueued since ``t0`` (host clock; the device
+        time too when the call blocked). A call that built the plan (and
+        may have built the kernels) counts its frames without a sample, as
+        the reference skips a compiling call (engine.py:2572-2577)."""
+        if built_now:
+            self.timer.total_steps += n
+        else:
+            self.timer.record((time.perf_counter() - t0) / n, n)
+
+    # ------------------------------------------------------------------
+    # frame plans (engine.py:2324-2506)
+    # ------------------------------------------------------------------
+    def begin_plan(self) -> FramePlan:
+        """Start a :class:`FramePlan`."""
+        self._require_init()
+        return FramePlan(self)
+
+    def run_plan(self, plan: FramePlan, max_chunk: int = 32) -> Dict[str, torch.Tensor]:
+        """Run a frame plan in chunks of up to ``max_chunk`` frames: each
+        frame scatters its writes and takes its input snapshot, then steps.
+        A chunk's op table and input timeline reach the card in one copy,
+        and no frame of a chunk reads the card. With collision or screen
+        hooks the chunk logs every frame's event tables, and the hooks fire
+        after the chunk (``_dispatch_logged_events``)."""
+        self._require_init()
+        if plan._cur or plan._cur_ops:
+            plan.next_frame()  # close a trailing partial frame
+        if not plan.frames or self.paused:
+            return self.metrics
+        self._check_events_rebuild()
+        built_now = self._plan is None
+        if built_now:
+            self._plan = self._build_plan()
+        self._flush_pending()
+        if self._plan is None:  # the flush wrote a radius above the bound
+            self._plan = self._build_plan()
+        self._flush_emissions()
+        lg = self.config.logic
+        events_on = ((lg.collision_events and self._has_collision_hooks())
+                     or (lg.screen_events and any(self._screen_hooked2())))
+        metrics = self.metrics
+        for pos in range(0, len(plan.frames), max_chunk):
+            t0 = time.perf_counter()
+            chunk = plan.frames[pos:pos + max_chunk]
+            metrics = self._run_plan_chunk(chunk, events_on)
+            self._time_steps(t0, len(chunk), built_now and pos == 0)
+        return metrics
+
+    def _run_plan_chunk(self, frames, events_on: bool) -> Dict[str, torch.Tensor]:
+        """One chunk of plan frames, each a full frame. When any frame of
+        the chunk writes, every frame of it drops the bin cache and rebins,
+        as the reference's chunk body does (engine.py:2450-2453). A chunk
+        whose frames mostly write runs them off the resident layout (the
+        op-density gate, engine.py:2395-2397)."""
+        n_frames = len(frames)
+        writes = any(cols for cols, _ in frames)
+        dense = 2 * sum(1 for cols, _ in frames if cols) >= n_frames
+        residency = False if dense else None
+        columns, inputs = self._plan_chunk_tables(frames)
+        log = _EventLog(self._log_specs(), n_frames, self.device) if events_on else None
+        dropped = torch.zeros((), dtype=torch.int32, device=self.device)
+        world, metrics = self.world, self.metrics
+        for f in range(n_frames):
+            world = _scatter_columns(world, columns[f])
+            if writes and world.solver_bin_step is not None:
+                world = world.replace(solver_bin_step=-1)
+            world, metrics = self._one_step(world, inputs[f], residency)
+            if log is not None:
+                dropped = dropped + log.write(world, f)
+                metrics["event_rows_dropped"] = dropped
+        self.world, self.metrics = world, metrics
+        if log is not None:
+            log.fetch()
+            self._dispatch_logged_events(log)
+        return metrics
+
+    def _plan_chunk_tables(self, frames):
+        """A chunk's writes and input timeline on the engine's device: one
+        int32 buffer on the host (every frame's inputs, then every column's
+        indices, then its values as float32 bits), copied to the card once
+        through pinned memory without blocking. Returns (per frame
+        {path: (int64 indices, float32 values)}, per frame InputState), all
+        views of the copy. Each column is cut to its own length, so no
+        index is padded past the world."""
+        k = len(frames)
+        snaps = [snap for _cols, snap in frames]
+        f32 = np.stack([np.stack([getattr(s, name).numpy() for name in _INPUT_F32])
+                        for s in snaps]).astype(np.float32)
+        bools = np.stack([np.concatenate([getattr(s, name).numpy().reshape(-1)
+                                          for name in _INPUT_BOOL]) for s in snaps])
+        idx_parts, val_parts, spans = [], [], []
+        pos = 0
+        for cols, _snap in frames:
+            frame_spans = []
+            for path, (i, v) in cols.items():
+                idx_parts.append(i)
+                val_parts.append(v)
+                frame_spans.append((path, pos, i.size))
+                pos += i.size
+            spans.append(frame_spans)
+        host = np.concatenate([f32.view(np.int32).reshape(-1), bools.astype(np.int32).reshape(-1)]
+                              + idx_parts + [np.asarray(v, np.float32).view(np.int32)
+                                             for v in val_parts])
+        buf = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            pinned = torch.empty(buf.shape, dtype=torch.int32, pin_memory=True)
+            pinned.copy_(buf)
+            buf = pinned.to(self.device, non_blocking=True)
+        else:
+            buf = buf.to(self.device)
+        o = f32.size
+        f32_t = buf[:o].view(torch.float32).view(k, len(_INPUT_F32))
+        bool_t = buf[o:o + bools.size].view(k, -1) != 0
+        o += bools.size
+        idx_all = buf[o:o + pos].to(torch.int64)
+        val_all = buf[o + pos:o + 2 * pos].view(torch.float32)
+        columns = [{path: (idx_all[p:p + m], val_all[p:p + m]) for path, p, m in frame_spans}
+                   for frame_spans in spans]
+        n_buttons = snaps[0].mouse_buttons.numel()
+        inputs = [InputState(
+            mouse_x=f32_t[f, 0], mouse_y=f32_t[f, 1],
+            mouse_buttons=bool_t[f, :n_buttons], mouse_present=bool_t[f, n_buttons],
+            keys=bool_t[f, n_buttons + 1:],
+            camera_x=f32_t[f, 2], camera_y=f32_t[f, 3], camera_zoom=f32_t[f, 4],
+        ) for f in range(k)]
+        return columns, inputs
+
+    def _run_plan_per_frame(self, plan: FramePlan) -> Dict[str, torch.Tensor]:
+        """A plan one frame at a time through the immediate paths: each
+        frame's columns through ``_apply_columns``, then one frame with its
+        snapshot, its events dispatched at once (engine.py:2490-2506). The
+        plan-against-immediate oracle of the tests."""
+        self._require_init()
+        if plan._cur or plan._cur_ops:
+            plan.next_frame()
+        if self._plan is None:
+            self._plan = self._build_plan()
+        for cols, snap in plan.frames:
+            if cols:
+                self.world = self._apply_columns(self.world, dict(cols))
+            if self._plan is None:  # the columns wrote a radius above the bound
+                self._plan = self._build_plan()
+            inputs = snap.map_tensors(lambda a: a.to(self.device))
+            self.world, self.metrics = self._one_step(self.world, inputs)
+            self.timer.total_steps += 1
+            if self.config.logic.collision_events:
+                self._dispatch_collision_events()
+            if self.config.logic.screen_events:
+                self._dispatch_screen_events()
+            self._flush_pending()
+            self._flush_emissions()
+        return self.metrics
 
     def _flush_event_log(self) -> None:
         """Fire the held chunk's hooks (logic.event_overlap) at a barrier
@@ -1567,19 +1979,53 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def stats(self) -> Dict[str, Any]:
-        """The stats-panel analog (gameEngine.js:1326-1381): moving-average
-        steps/s over the last 60 step() calls (host clock; enqueue time unless
-        those calls blocked), pools, and the last metrics."""
-        avg = sum(self._step_seconds) / len(self._step_seconds) if self._step_seconds else 0.0
+        """The stats-panel analog (gameEngine.js:1326-1381; engine.py:
+        2600-2613): steps/s and ms a step, the moving average of the last
+        60 timed ``step``/``run_plan`` calls or chunks (host clock; enqueue
+        time unless they blocked), frames stepped, pools, and the last
+        metrics."""
         out = {
-            "steps_per_sec": 1.0 / avg if avg > 0 else 0.0,
-            "ms_per_step": 1000.0 * avg,
-            "total_steps": self.total_steps,
+            "steps_per_sec": round(self.timer.steps_per_sec, 2),
+            "ms_per_step": round(self.timer.ms_per_step, 3),
+            "total_steps": self.timer.total_steps,
             "pools": {name: self.get_pool_stats(name) for name in self.classes},
         }
         for key, value in self.metrics.items():
             out[key] = int(value)
         return out
+
+    def enable_profiling(self, on: bool = True) -> None:
+        """enableProfiling (gameEngine.js:1731-1747): ``step`` then waits
+        for the card, so the timer reads device time."""
+        self._profiling = on
+
+    def pause(self) -> None:
+        """``step`` and ``run_plan`` return at once until :meth:`resume`."""
+        self.paused = True
+
+    def resume(self) -> None:
+        self.paused = False
+
+    def destroy(self) -> None:
+        """gameEngine.destroy (:1585-1639): drop the world and the plan, and
+        reset the pools, the queued ops and emissions and the held event
+        log, so a later ``init()`` starts clean and reclaims the mouse
+        (engine.py:2873-2893)."""
+        self.world = None
+        self._plan = None
+        # a held log's hooks must not fire into a re-initialised world
+        self._pending_log = None
+        self._initialized = False
+        self._pending_ops.clear()
+        self.emitter.clear()
+        for reg in self.classes.values():
+            reg.pool = EntityPool(reg.start_index, reg.count)
+
+    def save_checkpoint(self, path: str) -> None:
+        checkpoint.save_checkpoint(self, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        checkpoint.load_checkpoint(self, path)
 
     def update_physics_config(self, **kwargs) -> None:
         """Live physics updates: ``engine.update_physics_config(gravity=(0, 1))``."""
@@ -1608,16 +2054,6 @@ class Engine:
     # ------------------------------------------------------------------
     # parts of the reference engine that are not ported yet
     # ------------------------------------------------------------------
-    def begin_plan(self, *args, **kwargs):
-        _refuse("FramePlan", "slice D, item 15")
-
-    run_plan = begin_plan
-
-    def save_checkpoint(self, *args, **kwargs):
-        _refuse("checkpoints", "slice D, item 16")
-
-    load_checkpoint = save_checkpoint
-
     def render_packet(self, *args, **kwargs):
         _refuse("render extraction and rendering", "slice D, item 17")
 

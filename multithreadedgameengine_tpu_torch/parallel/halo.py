@@ -474,12 +474,11 @@ def _gather_home(homes: Sequence[World]):
 def slab_logic(chunk: World, inputs: InputState, plan: SlabPlan, row_ids: torch.Tensor,
                gather_fn) -> Tuple[World, SlabPasses]:
     """Phase A without neighbours (``phase_a_local``, halo.py:730-754): the
-    ticks on a home chunk whose rows have global ids ``row_ids``, with empty
-    lists. Returns (chunk, its emissions)."""
+    ticks on a home chunk with empty lists. ``row_ids``, the rows' global
+    ids, key its emissions for the merge. Returns (chunk, its emissions)."""
     empty = empty_neighbor_lists(chunk.transform.x.shape[0], chunk.device)
     chunk, emissions = run_logic_phase_masked(chunk, empty, inputs, plan.cfg, plan.type_specs,
-                                              plan.payload_channels, row_ids=row_ids,
-                                              gather_fn=gather_fn)
+                                              plan.payload_channels, gather_fn=gather_fn)
     return chunk, SlabPasses(emissions=(emissions, row_ids))
 
 
@@ -654,8 +653,7 @@ def slab_neighbor_logic(local: World, res_gid: torch.Tensor, valid_ent: torch.Te
     hooked = _hooked_mask(local, plan) if plan.scope_hooked else None
     row_ids = torch.clamp(res_gid, min=0)  # a free homed row (-1) is inactive
     local, emissions = run_logic_phase_masked(local, nbr, inputs, cfg, plan.type_specs,
-                                              plan.payload_channels, row_ids=row_ids,
-                                              gather_fn=gather_fn)
+                                              plan.payload_channels, gather_fn=gather_fn)
     passes = SlabPasses(emissions=(emissions, row_ids))
     if plan.events:
         passes.pairs = _slab_pairs(local, hooked, res_gid, res_fin, nbr, plan)

@@ -49,8 +49,8 @@ global order of the solver rows. K3 reads the grid's border rows (ROADMAP
 reference's tests check only finiteness for its kernel. Differences of
 form are those of ``parallel.halo``: one card, the replicated leaves shared
 by every chunk, each replicated pass once a frame; screen events are
-refused. A tick sees ``ctx.i`` as the row's gid (0 in a free slot, whose
-row is inactive), where the reference hands the local row index.
+refused. A tick sees ``ctx.i`` as the local row index, as in the
+reference.
 """
 
 from __future__ import annotations

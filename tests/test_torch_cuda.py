@@ -679,3 +679,77 @@ def test_event_chunk_does_not_wait_for_the_card(cuda, monkeypatch):
     eng.step(4)
     eng.sync()
     assert eng.world.step_count == 8
+
+
+def churn_scene(device, use_plan, n=400, frames=8, churn=16):
+    """Pool churn (BASELINE config 2 at a small size): a plan in chunks of 4
+    or the same ops issued immediately. Returns the world, the free lists
+    and K1's launches."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(n_balls=n, seed=123456, device=device, world_width=1200.0,
+                            world_height=800.0)
+    eng.step(2, block=True)
+    rng = np.random.default_rng(7)
+    before = cuda_kernels.pair_pass_resident.launches
+    plan = eng.begin_plan() if use_plan else None
+    for _ in range(frames):
+        kill = rng.choice(eng.active_indices("Ball"), size=churn, replace=False)
+        xs = rng.uniform(100, 1100, churn).astype(np.float32)
+        ys = rng.uniform(100, 700, churn).astype(np.float32)
+        if use_plan:
+            plan.despawn_batch(kill)
+            plan.spawn_batch("Ball", churn, x=xs, y=ys)
+            plan.next_frame()
+        else:
+            eng.despawn_batch(kill)
+            eng.spawn_batch("Ball", churn, x=xs, y=ys)
+            eng.step(1)
+    if use_plan:
+        eng.run_plan(plan, max_chunk=4)
+    free = {name: list(map(int, reg.pool.free)) for name, reg in eng.classes.items()}
+    return eng.snapshot(), free, cuda_kernels.pair_pass_resident.launches - before
+
+
+def test_churn_plan_on_card(cuda):
+    """A churning plan on the card: bit-equal with the same ops issued
+    immediately on the card, K1 twice a frame, and within 8 ulps of the CPU
+    (contact counts and pools exact)."""
+    plan, free_p, launches = churn_scene(cuda, True)
+    imm, free_i, _ = churn_scene(cuda, False)
+    cpu, free_c, _ = churn_scene("cpu", True)
+    assert launches == 16
+    assert free_p == free_i == free_c
+    for field in ("x", "y", "active"):
+        assert torch.equal(getattr(plan.transform, field), getattr(imm.transform, field))
+    assert torch.equal(plan.rigid_body.collision_count, cpu.rigid_body.collision_count)
+    assert torch.equal(plan.transform.active, cpu.transform.active)
+    tol = 8 * float(np.spacing(np.float32(1200.0)))
+    assert (plan.transform.x - cpu.transform.x).abs().max().item() <= tol
+    assert (plan.transform.y - cpu.transform.y).abs().max().item() <= tol
+
+
+def test_checkpoint_on_card(cuda, tmp_path):
+    """A checkpoint of a card engine resumes bit for bit in a fresh card
+    engine, and loads into a CPU engine with the same leaves."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    def build(device):
+        return make_balls_engine(n_balls=400, seed=9, device=device, world_width=1200.0,
+                                 world_height=800.0)
+
+    path = str(tmp_path / "card.npz")
+    a = build(cuda)
+    a.step(10)
+    a.save_checkpoint(path)
+    a.step(15)
+    b = build(cuda)
+    b.load_checkpoint(path)
+    c = build("cpu")
+    c.load_checkpoint(path)
+    assert torch.equal(c.world.transform.x, b.world.transform.x.cpu())
+    b.step(15)
+    for field in ("x", "y", "active"):
+        assert torch.equal(getattr(a.world.transform, field), getattr(b.world.transform, field))
+    assert torch.equal(a.world.rigid_body.vy, b.world.rigid_body.vy)
+    assert a.rng() == b.rng()

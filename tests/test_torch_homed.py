@@ -46,13 +46,20 @@ import multithreadedgameengine_tpu as ref
 import multithreadedgameengine_tpu_torch as port
 from multithreadedgameengine_tpu.models.balls import make_balls_engine as ref_balls
 from multithreadedgameengine_tpu.models.boids import Boid as RefBoid
+from multithreadedgameengine_tpu.parallel import make_halo_step as ref_make_halo_step
 from multithreadedgameengine_tpu.parallel import make_homed_step as ref_make_homed_step
 from multithreadedgameengine_tpu.parallel import make_mesh as ref_make_mesh
 from multithreadedgameengine_tpu_torch.components import Collider, RigidBody, SpriteRenderer
 from multithreadedgameengine_tpu_torch.interop import world_from_jax
 from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
 from multithreadedgameengine_tpu_torch.models.boids import Boid
-from multithreadedgameengine_tpu_torch.parallel import homed, make_homed_step, make_mesh
+from multithreadedgameengine_tpu_torch.parallel import (
+    homed,
+    make_halo_step,
+    make_homed_step,
+    make_mesh,
+    unplace_fn,
+)
 from multithreadedgameengine_tpu_torch.parallel.halo import (
     _get_comp,
     entity_leaf_specs,
@@ -232,6 +239,7 @@ def three_way(scene, steps, extent, headroom=8.0, adjacent_frac=1.0, every=None,
     for k in range(steps):
         b, mt = rh(eh.input.snapshot("cpu"))
         es.step(1)
+        assert_entities_equal(b, es.world)
         if k < ref_frames:
             a, mj = rj(ej.input.snapshot())
             for key in ("migrated_rows", "home_violators", "route_overflow_solver",
@@ -252,7 +260,9 @@ def three_way(scene, steps, extent, headroom=8.0, adjacent_frac=1.0, every=None,
 
 class TestBoidsParity:
     def test_trajectory_bit_exact_20_steps(self):
-        _a, b, _s, m = three_way(boids_scene, 12, 2000.0, ref_frames=6)
+        """The reference's bar (tests/test_homed.py:81-86): 20 frames bit for
+        bit against ``Engine.step``; the JAX homed step for the first 6."""
+        _a, b, _s, m = three_way(boids_scene, 20, 2000.0, ref_frames=6)
         assert int(m["home_violators"]) == 0 and int(m["route_overflow_solver"]) == 0
         assert int(m["active_count"]) == int(m["n_binned"]) == 256
         assert set(b.custom) == {"flocking"}
@@ -312,6 +322,76 @@ class TestValidation:
         _step, place, _u, _c = make_homed_step(eng, make_mesh(D, "cpu"), headroom=1.0)
         with pytest.raises(ValueError, match="placement overflow"):
             place(eng.world)
+
+
+class TestTickRowIndex:
+    """What a tick sees as ``ctx.i``: the row's global id under
+    ``Engine.step``, the local row index under both slab steps, as the
+    reference's ``run_logic_phase_masked`` hands it (behavior.py:758). The
+    tick writes ``ctx.i`` into a user field; 63 static entities, so no row
+    migrates."""
+
+    N_DEV = 4
+
+    @staticmethod
+    def scene(pkg):
+        mod = ref if pkg == "jax" else port
+        tag = mod.define_component("RowTag", {"row": "i32"})
+        comps = ref.components if pkg == "jax" else port.components
+        cls = type("Tagger", (mod.EntityClass,), {
+            "components": [comps.RigidBody, comps.Collider, tag], "uses_neighbors": False,
+            "setup": classmethod(lambda c, ctx: {"collider.radius": 3.0}),
+            "tick": staticmethod(lambda ctx: {"row_tag.row": ctx.i})})
+        eng = engine(pkg, world_width=2000.0, world_height=1600.0, seed=5,
+                     spatial=dict(cell_size=100.0, max_neighbors=8),
+                     physics=dict(sub_step_count=1, gravity=(0.0, 0.0)))
+        eng.register_entity_class(cls, 63)
+        eng.init()
+        rng = np.random.default_rng(2)
+        eng.spawn_batch("Tagger", 63, x=rng.uniform(50, 1950, 63).astype(np.float32),
+                        y=rng.uniform(50, 1550, 63).astype(np.float32))
+        eng._flush_pending()
+        return eng
+
+    @staticmethod
+    def rows(world):
+        return np.asarray(world.custom["row_tag"].row)
+
+    def test_engine_step_hands_the_global_id(self):
+        for pkg in ("jax", "torch"):
+            eng = self.scene(pkg)
+            eng.step(2)
+            w = eng.snapshot()
+            active = np.asarray(w.transform.active)
+            np.testing.assert_array_equal(self.rows(w)[active], np.flatnonzero(active))
+
+    def test_halo_step_hands_the_local_row(self):
+        ej, et = self.scene("jax"), self.scene("torch")
+        step_j, place_j = ref_make_halo_step(ej, ref_make_mesh(self.N_DEV, axis_name="slab"))
+        step_t, place_t = make_halo_step(et, make_mesh(self.N_DEV, "cpu"))
+        wj, ct = place_j(ej.world), place_t(et.world)
+        for _ in range(2):
+            wj, _m = step_j(wj, ej.input.snapshot())
+            ct, _m = step_t(ct, et.input.snapshot("cpu"))
+        a, b = jax.device_get(wj), unplace_fn(ct)
+        np.testing.assert_array_equal(self.rows(b).astype(np.int32), self.rows(a))
+        # a home chunk holds N / D consecutive ids
+        rows = 64 // self.N_DEV
+        active = b.transform.active.numpy()
+        np.testing.assert_array_equal(self.rows(b)[active], np.flatnonzero(active) % rows)
+
+    def test_homed_step_hands_the_local_row(self):
+        ej, et = self.scene("jax"), self.scene("torch")
+        rj, rt = RefHomed(ej, n_dev=self.N_DEV), PortHomed(et, n_dev=self.N_DEV)
+        for _ in range(2):
+            a, mj = rj(ej.input.snapshot())
+            b, mt = rt(et.input.snapshot("cpu"))
+            assert int(mt["migrated_rows"]) == int(mj["migrated_rows"]) == 0
+        np.testing.assert_array_equal(self.rows(b), np.asarray(self.rows(a)))
+        # each gid's position in its gid-sorted chunk
+        for g in rt.gids:
+            held = torch.nonzero(g >= 0).flatten()
+            np.testing.assert_array_equal(self.rows(b)[g[held].numpy()], held.numpy())
 
 
 class TestDespawnAndPallasUnderHomed:

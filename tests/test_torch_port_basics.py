@@ -227,8 +227,8 @@ def test_unported_runtime_updates_and_apis_are_refused():
     eng = Engine(balls_config(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.update_physics_config(solver="neighbors")
-    for api in (eng.begin_plan, eng.save_checkpoint, eng.render_packet):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for api in (eng.render_packet, eng.screenshot):
+        with pytest.raises(NotImplementedError, match="item 17"):
             api()
 
 

@@ -16,8 +16,11 @@ rungs (``chip_smoke.py`` phases 6, 8 and 12: the 1M balls scene, the
 102,400-boid scene and the 25,600-entity mixed predators scene of
 ``benchmarks/halo_scaling.py`` on 4 slabs of one card) through
 ``parallel.make_halo_step``, and the 1M balls scene through
-``parallel.make_homed_step`` (``homed_1m_d4``, phase 13) -- it warms up,
-then:
+``parallel.make_homed_step`` (``homed_1m_d4``, phase 13), and BASELINE
+config 2 (``churn_10k``, phase 15: the demo scene churning 256 despawns and
+256 spawns a frame through ``FramePlan`` and ``Engine.run_plan`` in chunks
+of 30, as ``run_ladder.py``'s ``rung_churn`` runs it; a chunk's wall time
+includes building its plan) -- it warms up, then:
 
 - times three chunks of ``--frames`` frames with the host clock, each
   ending in ``torch.cuda.synchronize`` (profiler off);
@@ -55,6 +58,8 @@ from pathlib import Path
 from chip_smoke import (
     BOIDS_N,
     BOIDS_WORLD,
+    CHURN,
+    CHURN_CHUNK,
     CONFIG3_SPATIAL,
     EVENTS_LOGIC,
     HALO_BOIDS_N,
@@ -69,6 +74,7 @@ from chip_smoke import (
     LADDER_PHYSICS,
     boids_engine,
     card_name_and_limit,
+    churn_frames,
     halo_predators_engine,
     neighbor_lists_of,
     predators_engine,
@@ -87,6 +93,7 @@ CELLS = {
     "halo_predators_d4": dict(predators=True),
     "homed_1m_d4": dict(homed=True, n_balls=HALO_N - 1, seed=123456,
                         world_width=HALO_WORLD[0], world_height=HALO_WORLD[1]),
+    "churn_10k": dict(n_balls=10_000, seed=123456, churn=True),
 }
 
 
@@ -94,20 +101,28 @@ def engine_runner(kw: dict):
     """``run(frames)`` through ``Engine.step``, what its plan picked, and
     the parts profiled alone ({name: fn}: the neighbour build of a scene
     that builds lists, the stamp loop of one with decals)."""
+    import numpy as np
+
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     from multithreadedgameengine_tpu_torch.ops.decals import stamp_decals
     from multithreadedgameengine_tpu_torch.ops.events import diff_pairs
     from multithreadedgameengine_tpu_torch.ops.particles import update_particles
 
+    kw = dict(kw)
+    churn = kw.pop("churn", False)
     if "boids" in kw:
         eng = boids_engine("cuda", kw["boids"], BOIDS_WORLD, CONFIG3_SPATIAL)
     elif "predators" in kw:
         eng = predators_engine("cuda", **({"logic": EVENTS_LOGIC} if kw.get("events") else {}))
     else:
         eng = make_balls_engine(device="cuda", **kw)
+    rng = np.random.default_rng(7)
 
     def run(frames):
-        eng.step(frames)
+        if churn:
+            churn_frames(eng, rng, frames, CHURN, CHURN_CHUNK)
+        else:
+            eng.step(frames)
         eng.sync()
 
     reads = []  # (host seconds, log bytes, frames) of each chunk's dispatch
