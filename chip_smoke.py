@@ -156,7 +156,32 @@ Phases, each printing one line or more before the last:
    calls, emissions, tables and entities identical (``[plan_events]``);
 19. the demo scene saved at frame 10 and stepped 15 more, against a fresh
    engine loaded from the file and stepped 15: bit-equal, and the next
-   ``rng()`` equal (``[checkpoint]``).
+   ``rng()`` equal (``[checkpoint]``);
+20. slice C4's main path: the demo scene with ``solver="neighbors"``
+   through ``Engine.step``, 5 + 20 frames, beside phase 3's grid steps/s
+   (``[neighbors_10k]``: steps/s, no kernel launched, ``n_binned``); 400
+   balls on the neighbour solver on the card against the CPU for 3 frames
+   (counts exact, positions within 8 ulps) and ``tests/test_physics_grid.py``'s
+   random scene through both solvers on the card for 5 frames (within
+   2e-3; ``[neighbors_reference]``);
+21. slice D2's main path on the demo scene: the render server as
+   ``server/render_server.py::run_scene`` drives it (``apply_inputs``,
+   ``step(2)``, ``publish``) for 80 steps, a client thread posting its
+   camera to /input and reading every frame over localhost, beside 80
+   steps unpublished and 80 with a sync every 2 steps in place of the
+   publish, in turns of 40 (unpublished, synced, published, published,
+   synced, unpublished; ``[render_server_balls_10k]``: the three steps/s,
+   each publish's own ms, K1's launches, the frames the client parsed); the
+   published header against the packet; K1 against its plain version on
+   the scene's layout after the run; the packet and the frame of the card's
+   world against its CPU copy's (``[render_packet]``);
+22. the same in front of BASELINE config 4 with the demo atlas
+   (``build_demo_atlas``) and a blood burst, the decal PNG every 60 steps
+   (``[render_server_predators_15k]``: also a publish with the PNG, the
+   atlas endpoints, the decal PNG, non-empty particle, shadow and light
+   sections; ``[render_packet]``);
+23. ``Engine.screenshot`` of phase 22's world on the card against its CPU
+   copy: the same PNG bytes (``[screenshot]``).
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -172,9 +197,12 @@ from __future__ import annotations
 import contextlib
 import json
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 N_MAIN = 10_000
 SEED = 123456
@@ -230,6 +258,26 @@ CHURN, CHURN_CHUNK, CHURN_WARM_PLANS, CHURN_PLANS, CHURN_FRAMES = 256, 30, 2, 3,
 SMALL_CHURN = dict(balls=400, frames=8, churn=16, chunk=4)
 PLAN_REF_ULPS = 8
 PLAN_EVENT_FRAMES, PLAN_EVENT_CHUNK = 8, 4
+# slices C4 and D2: the neighbour-list solver on the demo scene, and the
+# render server as ``run_scene`` drives it (a publish every 2 steps, the
+# decal PNG every 60), over a step budget, beside the same steps
+# unpublished; the 400-ball card-against-CPU check of the neighbour solver
+# (3 frames, positions within NBR_REF_ULPS ulps at the world's extent: the
+# lists' sums run in another order on the card) and the reference's
+# neighbours-against-grid bar (tests/test_physics_grid.py, 5 frames)
+NBR_WARMUP, NBR_FRAMES, NBR_REF_FRAMES, NBR_REF_ULPS = 5, 20, 3, 8
+NBR_GRID_FRAMES, NBR_GRID_ATOL = 5, 2e-3
+# the timed runs go in turns, each RENDER_CHUNK steps: unpublished, synced,
+# published, published, synced, unpublished (the host's speed drifts within
+# a call)
+RENDER_CHUNK, STEPS_PER_PUBLISH, DECALS_EVERY = 40, 2, 60
+RENDER_STEPS = 2 * RENDER_CHUNK
+# the balls client's camera, posted to /input: the whole 9000 x 4000 world
+# on the scene's 1600 x 600 canvas, where the default camera (the world's
+# centre, zoom 1) sees none of the pile once the balls have fallen
+BALLS_CAMERA = (0.0, 0.0, 0.15)
+PUBLISH_TIMED = 10
+SHOT_SIZE = (480, 270)
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -2311,6 +2359,378 @@ def checkpoint_phase(dev):
     return k1
 
 
+# ---------------------------------------------------------------------------
+# slices C4 and D2: the neighbour-list solver and the render path
+# ---------------------------------------------------------------------------
+
+def random_scene_world(dev, seed, n=60):
+    """``tests/test_physics_grid.py``'s ``random_scene`` (statics, triggers,
+    inactive entities, radii 4-12 in 600 x 400) as a port world on ``dev``,
+    made as ``tests/test_physics.py::world_from_golden`` makes it, and its
+    config with ``solver``."""
+    import numpy as np
+    import torch
+
+    from multithreadedgameengine_tpu_torch import make_config
+    from multithreadedgameengine_tpu_torch.state import make_world
+
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(20, 580, n), rng.uniform(20, 380, n)
+    radius = rng.uniform(4.0, 12.0, n)
+    px, py = x - rng.uniform(-2, 2, n), y - rng.uniform(-2, 2, n)
+    static = rng.random(n) < 0.15
+    trigger = rng.random(n) < 0.1
+    active = ~(rng.random(n) < 0.05)
+
+    def t(v, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+
+    def cfg(solver):
+        return make_config(world_width=600.0, world_height=400.0,
+                           spatial=dict(max_neighbors=64, method="bruteforce"),
+                           physics=dict(gravity=(0.0, 0.4), sub_step_count=3,
+                                        boundary_elasticity=0.5,
+                                        collision_response_strength=0.7,
+                                        verlet_damping=0.99, solver=solver))
+
+    w = make_world(n, dev)
+    ones = t(np.ones(n, bool), torch.bool)
+    w = w.replace(
+        transform=w.transform.replace(active=t(active, torch.bool), x=t(x), y=t(y)),
+        rigid_body=w.rigid_body.replace(active=ones, static=t(static, torch.bool), px=t(px),
+                                        py=t(py), max_vel=t(np.full(n, 30.0))),
+        collider=w.collider.replace(active=ones, radius=t(radius),
+                                    is_trigger=t(trigger, torch.bool),
+                                    visual_range=t(np.full(n, 1000.0))))
+    return w, cfg, float(radius.max())
+
+
+def neighbors_phase(dev, grid_steps_per_s):
+    """Slice C4's main path: the demo scene (10,000 balls) with
+    ``solver="neighbors"`` through ``Engine.step``, beside phase 3's grid
+    steps/s; then 400 balls on the card against the CPU, and the
+    reference's neighbours-against-grid bar on the card."""
+    import numpy as np
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.ops.physics import physics_step
+    from multithreadedgameengine_tpu_torch.ops.physics_grid import solver_geometry
+    from multithreadedgameengine_tpu_torch.ops.spatial import neighbor_lists
+
+    eng = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev,
+                            physics=dict(solver="neighbors"))
+    zero_counts()
+    eng.step(NBR_WARMUP, block=True)
+    t0 = time.perf_counter()
+    eng.step(NBR_FRAMES)
+    eng.sync()
+    dt = time.perf_counter() - t0
+    counts = read_counts() + (kernels().expand.launches,)
+    w, m, plan = eng.world, eng.metrics, eng._plan
+    ok = finite(w) and int(m["nonfinite_count"].item()) == 0
+    n_binned, active = int(m["n_binned"].item()), int(m["active_count"].item())
+    sps = NBR_FRAMES / dt
+    log("neighbors_10k", card=repr(card_name_and_limit()), balls=N_MAIN,
+        frames=NBR_WARMUP + NBR_FRAMES, steps_per_s=sps, grid_steps_per_s=grid_steps_per_s,
+        ratio_to_grid=sps / grid_steps_per_s, kernel_launches=counts,
+        list_slots=(2 * eng.config.spatial.max_cell_radius + 1) ** 2
+        * eng.config.spatial.cell_capacity,
+        n_binned=n_binned, active_count=active,
+        mean_contacts=w.rigid_body.collision_count[1:].float().mean().item(), finite=ok)
+    check(ok, "neighbors_10k: non-finite positions")
+    check(plan.solver_geom is None and plan.need_neighbors,
+          "neighbors_10k: the frame did not run the neighbour-list solver")
+    check(counts == (0, 0, 0, 0), f"neighbors_10k: kernel launches {counts}, expected none")
+    check(n_binned == active, f"neighbors_10k: n_binned {n_binned} of {active}")
+    del eng, w
+
+    snaps = {}
+    for d in (dev, "cpu"):
+        e = make_balls_engine(n_balls=400, seed=SEED, device=d, world_width=1200.0,
+                              world_height=800.0, physics=dict(solver="neighbors"))
+        e.input.set_mouse(600.0, 700.0)
+        e.input.mouse_button(0, True)
+        e.step(NBR_REF_FRAMES)
+        snaps[str(d)] = e.snapshot()
+    a, b = snaps[str(dev)], snaps["cpu"]
+    err = max((a.transform.x - b.transform.x).abs().max().item(),
+              (a.transform.y - b.transform.y).abs().max().item())
+    bad = int((a.rigid_body.collision_count != b.rigid_body.collision_count).sum())
+    tol = NBR_REF_ULPS * float(np.spacing(np.float32(1200.0)))
+
+    walls = {}
+    for solver in ("neighbors", "grid"):
+        w, cfg, r_max = random_scene_world(dev, 0)
+        c = cfg(solver)
+        geom = solver_geometry(c, r_max) if solver == "grid" else None
+        for _ in range(NBR_GRID_FRAMES):
+            nbr = (neighbor_lists(w.transform.x, w.transform.y, w.transform.active,
+                                  w.collider.visual_range, c) if geom is None else None)
+            w, _ovf = physics_step(w, c, 1.0, geom, nbr)
+            w = w.replace(step_count=w.step_count + 1)
+        walls[solver] = w
+    gap = max((walls["neighbors"].transform.x - walls["grid"].transform.x).abs().max().item(),
+              (walls["neighbors"].transform.y - walls["grid"].transform.y).abs().max().item())
+    log("neighbors_reference", balls=400, frames=NBR_REF_FRAMES, max_abs_err_vs_cpu=err,
+        count_mismatch=bad, tol=tol, contacts=int(a.rigid_body.collision_count.sum().item()),
+        vs_grid_frames=NBR_GRID_FRAMES, vs_grid_max_abs=gap, vs_grid_atol=NBR_GRID_ATOL)
+    check(bad == 0 and err <= tol, "neighbors_reference: the card differs from the CPU")
+    check(gap <= NBR_GRID_ATOL, f"neighbors_reference: neighbours and grid part by {gap}")
+
+
+@contextlib.contextmanager
+def world_on_host(eng):
+    """The engine holding a CPU copy of its world for the duration."""
+    card = eng.world
+    eng.world = eng.snapshot()
+    try:
+        yield
+    finally:
+        eng.world = card
+
+
+FRAME_HEADER = struct.Struct("<IIIIIIII")
+
+
+def parse_frame(buf: bytes):
+    """A frame's header fields, after checking the magic, the length the
+    header implies and that the entity lanes are finite with their index
+    lane an entity id."""
+    import numpy as np
+
+    from multithreadedgameengine_tpu_torch.server.render_server import ENT_LANES, MAGIC
+
+    magic, step, n_e, n_p, n_s, n_l, mask, n_dbg = FRAME_HEADER.unpack_from(buf, 0)
+    size = 32 + 4 * (n_e * (ENT_LANES + 1) + 4 * n_dbg + 5 * n_p + 7 * n_s + 5 * n_l)
+    check(magic == MAGIC and len(buf) == size, f"a frame of {len(buf)} bytes, header {size}")
+    ent = np.frombuffer(buf, "<f4", n_e * ENT_LANES, 32).reshape(n_e, ENT_LANES)
+    check(bool(np.isfinite(ent).all()) and bool((ent[:, 12] >= 0).all()),
+          "a frame's entity lanes are not finite ids")
+    return dict(step=step, n_e=n_e, n_p=n_p, n_s=n_s, n_l=n_l, mask=mask, n_dbg=n_dbg)
+
+
+class FrameClient(threading.Thread):
+    """A browser's stand-in: POSTs its camera to /input once (when given),
+    then GETs /frame over localhost every 10 ms until stopped, parsing each
+    new frame (``parse_frame``). Only reads bytes the server published."""
+
+    def __init__(self, port: int, camera=None):
+        super().__init__(daemon=True)
+        self.base = f"http://localhost:{port}"
+        self.url = self.base + "/frame"
+        self.camera = camera
+        self.posted = threading.Event()
+        self.stop = threading.Event()
+        self.frames, self.error = [], None
+
+    def run(self):
+        last = b""
+        try:
+            if self.camera is not None:
+                req = urllib.request.Request(
+                    self.base + "/input", data=json.dumps({"camera": self.camera}).encode(),
+                    method="POST")
+                urllib.request.urlopen(req, timeout=30).close()
+            self.posted.set()
+            while not self.stop.is_set():
+                with urllib.request.urlopen(self.url, timeout=30) as r:
+                    body = r.read()
+                if body and body != last:
+                    self.frames.append(parse_frame(body))
+                    last = body
+                self.stop.wait(0.01)
+        except Exception as e:  # reported by the phase, which fails on it
+            self.error = repr(e)
+            self.posted.set()
+
+
+def http_get(port: int, path: str) -> bytes:
+    with urllib.request.urlopen(f"http://localhost:{port}{path}", timeout=30) as r:
+        return r.read()
+
+
+def render_server_phase(dev, scene, errs):
+    """Slice D2's main path: the render server in front of ``scene`` as
+    ``run_scene`` drives it (``apply_inputs``, ``step(2)``, ``publish``,
+    the decal PNG every 60 steps) for ``RENDER_STEPS`` steps, a client
+    thread reading every frame over localhost, beside as many steps
+    unpublished and as many with a sync in place of each publish, the
+    three in turns; K1's launches over the published steps, and K1
+    against its plain version on the scene's layout after them;
+    each publish's own ms (the card idle first); the packet against its CPU
+    copy's (``[render_packet]``), the published headers against the packet,
+    and for predators the atlas endpoints, the decal PNG and the sections.
+    Returns (K1 launches, the engine)."""
+    import numpy as np
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+    from multithreadedgameengine_tpu_torch.render.atlas import decode_png
+    from multithreadedgameengine_tpu_torch.server.render_server import (
+        RenderServer,
+        build_demo_atlas,
+        encode_frame,
+    )
+
+    ck = kernels()
+    tag = f"render_server_{scene}"
+    if scene == "balls_10k":
+        eng, atlas = make_balls_engine(n_balls=N_MAIN, seed=SEED, device=dev), None
+    else:
+        eng = predators_engine(dev)
+        atlas = build_demo_atlas(eng)
+        blood_burst(eng)
+    subs = eng.config.physics.sub_step_count
+    eng.step(2 * STEPS_PER_PUBLISH, block=True)
+
+    published = [0]  # steps published so far: the decal PNG every 60
+
+    def run(mode):
+        t0 = time.perf_counter()
+        for _ in range(RENDER_CHUNK // STEPS_PER_PUBLISH):
+            if mode == "published":
+                srv.apply_inputs()
+            eng.step(STEPS_PER_PUBLISH)
+            if mode == "published":
+                published[0] += STEPS_PER_PUBLISH
+                srv.publish(include_decals=(published[0] % DECALS_EVERY == 0))
+            elif mode == "synced":  # a publish's wait for the card, and nothing else
+                torch.cuda.synchronize()
+        eng.sync()
+        return time.perf_counter() - t0
+
+    srv = RenderServer(eng, port=0, atlas=atlas).start()
+    client = FrameClient(srv.port, list(BALLS_CAMERA) if atlas is None else None)
+    try:
+        client.start()
+        client.posted.wait(timeout=60)
+        srv.apply_inputs()  # the client's camera, before the timed runs
+        secs = {"unpublished": 0.0, "synced": 0.0, "published": 0.0}
+        for mode in ("unpublished", "synced"):
+            secs[mode] += run(mode)
+        zero_counts()
+        secs["published"] += run("published") + run("published")
+        k1, k2, k3 = read_counts()
+        k4 = ck.expand.launches
+        for mode in ("synced", "unpublished"):
+            secs[mode] += run(mode)
+        time.sleep(0.05)
+        client.stop.set()
+        client.join(timeout=60)
+        check(not client.is_alive() and client.error is None,
+              f"{tag}: the client failed: {client.error}")
+
+        # each publish's own cost, the card idle first
+        publish_ms = []
+        for _ in range(PUBLISH_TIMED):
+            eng.step(STEPS_PER_PUBLISH)
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            srv.publish()
+            publish_ms.append((time.perf_counter() - tp) * 1e3)
+        decal_ms = None
+        if atlas is not None:  # a publish with the decal PNG, as every 60th step's
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            srv.publish(include_decals=True)
+            decal_ms = (time.perf_counter() - tp) * 1e3
+        # the published header against the packet of the same world (a
+        # fresh burst: the first has landed by now, and the frame's particle
+        # section is the live ones)
+        if atlas is not None:
+            blood_burst(eng)
+        for _ in range(3):
+            eng.step(STEPS_PER_PUBLISH)
+            srv.publish()
+            head = parse_frame(http_get(srv.port, "/frame"))
+            pkt = eng.render_packet(20000)
+            check(head["n_e"] == int(pkt.count) and head["step"] == eng.world.step_count,
+                  f"{tag}: header {head} against packet count {int(pkt.count)}")
+        stats = json.loads(http_get(srv.port, "/stats"))
+        check(stats["total_steps"] == eng.timer.total_steps, f"{tag}: /stats is stale")
+        extra = {}
+        if atlas is not None:
+            img = decode_png(http_get(srv.port, "/atlas"))
+            payload = json.loads(http_get(srv.port, "/atlas.json"))
+            decals = decode_png(http_get(srv.port, "/decals"))
+            extra = dict(atlas_px=list(img.shape), atlas_sheets=len(payload["sheets"]),
+                         decal_png=list(decals.shape),
+                         decal_px_set=int((decals[..., 3] > 0).sum()))
+            check(img.shape[2] == 4 and len(payload["sheets"]) > 0 and payload["textures"],
+                  f"{tag}: the atlas endpoints")
+            check(decals.shape[:2] == tuple(eng.world.decal_canvas.shape[:2])
+                  and extra["decal_px_set"] > 0, f"{tag}: the decal PNG")
+            check(head["n_p"] > 0 and head["n_s"] > 0 and head["n_l"] > 0,
+                  f"{tag}: empty particle, shadow or light section: {head}")
+    finally:
+        client.stop.set()
+        srv.stop()
+    frames_seen = len(client.frames)
+    steps_seen = [f["step"] for f in client.frames]
+    log(tag, card=repr(card_name_and_limit()), entities=eng.world.n_entities,
+        steps=RENDER_STEPS, steps_per_publish=STEPS_PER_PUBLISH,
+        steps_per_s=RENDER_STEPS / secs["published"],
+        unpublished_steps_per_s=RENDER_STEPS / secs["unpublished"],
+        synced_steps_per_s=RENDER_STEPS / secs["synced"],
+        ratio=secs["unpublished"] / secs["published"], publish_ms_median=statistics.median(publish_ms),
+        publish_ms_max=max(publish_ms), decal_publish_ms=decal_ms,
+        frame_bytes=len(encode_frame(eng)),
+        client_frames=frames_seen, k1_launches=k1, expected_k1=RENDER_STEPS * subs,
+        header=head, **extra)
+    check(k1 == RENDER_STEPS * subs and (k2, k3, k4) == (0, 0, 0),
+          f"{tag}: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches; "
+          f"expected {RENDER_STEPS * subs}, 0, 0, 0")
+    check(frames_seen > 0 and steps_seen == sorted(steps_seen),
+          f"{tag}: the client read {frames_seen} frames, steps {steps_seen[:8]}...")
+    check(finite(eng.world), f"{tag}: non-finite positions")
+    err, _ = kernel_vs_plain(ck.pair_pass_resident, ck.pair_pass_resident_plain, scene,
+                             layout_args(eng),
+                             max(eng.config.world_width, eng.config.world_height))
+    errs["K1"].append(err)
+
+    # the packet and the frame on the card against the CPU copy's
+    pkt = eng.render_packet()
+    frame = encode_frame(eng)
+    with world_on_host(eng):
+        host_pkt, host_frame = eng.render_packet(), encode_frame(eng)
+    same = all(torch.equal(getattr(pkt, f), getattr(host_pkt, f))
+               for f in pkt.__dataclass_fields__)
+    log("render_packet", scene=scene, visible=int(pkt.count), rows=pkt.index.shape[0],
+        fields_equal=same, frame_bytes_equal=frame == host_frame)
+    check(same and frame == host_frame and int(pkt.count) > 0,
+          f"render_packet: {scene}'s packet or frame differs from its CPU copy's")
+    check(bool(np.all(np.diff(pkt.y[:int(pkt.count)].numpy()) >= 0)),
+          f"render_packet: {scene}'s packet is not Y-sorted")
+    return k1, eng
+
+
+def screenshot_phase(eng):
+    """``Engine.screenshot`` of the card's world against its CPU copy's:
+    the same PNG bytes (the predators scene: decals, shadows, atlas
+    sprites, particles, lights and glows)."""
+    import os
+
+    from multithreadedgameengine_tpu_torch.render.headless import encode_png
+
+    w, h = SHOT_SIZE
+    path = os.path.join("build", "chip_smoke_screenshot.png")
+    os.makedirs("build", exist_ok=True)
+    t0 = time.perf_counter()
+    img = eng.screenshot(path, w, h)
+    shot_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        png = f.read()
+    os.remove(path)
+    with world_on_host(eng):
+        host = eng.screenshot(None, w, h)
+    same = encode_png(host) == png
+    log("screenshot", size=f"{w}x{h}", png_bytes=len(png), seconds=shot_s,
+        drawn_px=int((img.std(axis=2) > 5).sum()), png_equal=same)
+    check(same, "screenshot: the card's world and its CPU copy give other PNG bytes")
+    check(int((img.std(axis=2) > 5).sum()) > 100, "screenshot: nothing drawn")
+
+
 def main() -> int:
     import torch
 
@@ -2407,7 +2827,8 @@ def main() -> int:
     frames = WARMUP + CHUNKS * CHUNK
     w = eng.world
     ok = finite(w)
-    log("main_10k", balls=N_MAIN, frames=frames, steps_per_s=CHUNKS * CHUNK / dt,
+    main_sps = CHUNKS * CHUNK / dt
+    log("main_10k", balls=N_MAIN, frames=frames, steps_per_s=main_sps,
         k1_launches=k1_main, k2_launches=k2_main, expected_k1=frames * subs,
         layout=list(layout_args(eng)[0].shape),
         solver_overflow=int(eng.metrics["solver_overflow"].item()),
@@ -2545,6 +2966,16 @@ def main() -> int:
     k1_plan_events = plan_events(dev)
     k1_checkpoint = checkpoint_phase(dev)
 
+    # 20-23. slices C4 and D2: the neighbour-list solver, then the render
+    # server in front of the balls and predators scenes, their packets and
+    # frames against their CPU copies', and a screenshot
+    neighbors_phase(dev, main_sps)
+    k1_render_balls, eng = render_server_phase(dev, "balls_10k", errs)
+    del eng
+    k1_render_pred, eng = render_server_phase(dev, "predators_15k", errs)
+    screenshot_phase(eng)
+    del eng
+
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
         return {"name": f"{key} {kernel.__name__}", "route": "cuda", "source": source,
@@ -2564,7 +2995,9 @@ def main() -> int:
                "launches_plan_vs_immediate": k1_plan_small,
                "launches_plan_resident_100k": {f"{k}_{r}": v[0] for (k, r), v in
                                                plan_100k.items()},
-               "launches_plan_events": k1_plan_events, "launches_checkpoint": k1_checkpoint}),
+               "launches_plan_events": k1_plan_events, "launches_checkpoint": k1_checkpoint,
+               "launches_render_balls_10k": k1_render_balls,
+               "launches_render_predators_15k": k1_render_pred}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],

@@ -10,20 +10,25 @@ writes and a half that scatters them), ``step(n)``, frame plans
 ``destroy``, ``snapshot``/``restore``, checkpoints, ``stats`` with the step
 timer, the timeline and the phase profiler (``profiling``), the debug
 flags (``debugging``), ``update_physics_config``, the Mouse as entity 0
-and ``apply_inputs``.
+and ``apply_inputs``; for renderers, ``render_packet``, ``screenshot``,
+``load_assets`` (with the constructor's ``images``/``sheets`` and
+``engine.atlas``) and the sprite-override RPC (``set_sprite_prop``,
+``call_sprite_method``, ``sprite_overrides_payload``).
 
 One frame (the reference's ``one_step_impl`` with the grid solver,
 engine.py:1460-1824), run eagerly:
 
 1. ``apply_inputs`` writes the mouse as entity 0;
-2. when a ticking class reads neighbours, shadows are on or collision
-   events are, the neighbour lists (``ops.spatial.neighbor_lists``, or
-   ``neighbor_lists_by_class`` with ``spatial.per_class_assembly``) with the
-   declared payload channels; then ``behavior.run_logic_phase`` runs the
-   ticks;
+2. when a ticking class reads neighbours, shadows are on, collision
+   events are or the neighbour-list solver runs, the neighbour lists
+   (``ops.spatial.neighbor_lists``, or ``neighbor_lists_by_class`` with
+   ``spatial.per_class_assembly``) with the declared payload channels; then
+   ``behavior.run_logic_phase`` runs the ticks;
 3. ``render.extract.advance_animation``, by the registry's frame counts;
-4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver,
-   derived properties), or with position residency
+4. physics: ``ops.physics.physics_step`` (Verlet move, the grid solver
+   or, for solver "neighbors" and a scene with no collider radius, the
+   neighbour-list solver over the frame's lists, derived properties), or
+   with position residency
    ``ops.physics_grid.resident_persistent_step`` then ``update_derived``;
 5. with ``logic.collision_events``: the frame's contact pairs recorded from
    its neighbour lists (``ops.physics.record_collision_pairs``: per class,
@@ -77,9 +82,8 @@ and the decal texture bank.
 runs their plain PyTorch versions. There is no automatic choice and no
 fallback: without a card, the default raises at the first allocation.
 
-Configurations outside the ported slices raise ``NotImplementedError``
-naming their ROADMAP item (see ``_check_supported``); nothing is silently
-ignored.
+Every configuration of the reference's one-device engine runs here; the
+multi-card mesh and the GSPMD step are ROADMAP items 21 and 22.
 """
 
 from __future__ import annotations
@@ -138,19 +142,15 @@ from .ops.spatial import (
     neighbor_lists_by_class,
 )
 from .profiling import PhaseProfiler, StepTimer, TimelineLog
-from .render.extract import advance_animation
+from .render.extract import (
+    RenderPacket,
+    advance_animation,
+    extract_render_packet,
+    host_copy,
+    packet_to_host,
+)
 from .rng import Mulberry32
 from .state import EntityPool, World, make_world, scatter_fields
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP: {item})")
-
-
-def _check_supported(cfg: EngineConfig) -> None:
-    """Refuse every configuration the ported slice does not run."""
-    if cfg.physics.solver == "neighbors":
-        _refuse("physics.solver='neighbors'", "slice C, item 12")
 
 
 def apply_inputs(world: World, inputs: InputState) -> World:
@@ -544,13 +544,17 @@ class Engine:
         ),
     }
 
-    def __init__(self, config: Optional[EngineConfig] = None, *, device="cuda", **kwargs):
+    def __init__(self, config: Optional[EngineConfig] = None,
+                 images: Optional[Dict[str, Any]] = None,
+                 sheets: Optional[Dict[str, Any]] = None, *, device="cuda", **kwargs):
+        """``images``/``sheets`` mirror ``new GameEngine(config, imageUrls)``
+        (gameEngine.js:21, :805-889): the assets named are loaded, packed
+        into the big atlas and registered at once (:meth:`load_assets`)."""
         if config is None:
             config = make_config(**kwargs)
         elif kwargs:
             raise TypeError("pass either a config object or kwargs, not both")
         self.config = config.validated()
-        _check_supported(self.config)
         self.device = torch.device(device)
         self.rng = Mulberry32(self.config.seed)
         self.input = InputController()
@@ -584,6 +588,13 @@ class Engine:
         self.profiler = PhaseProfiler(self)
         # step() blocks on the card so the timer reads device time
         self._profiling = False
+        # the renderer-override channel (set_sprite_prop, call_sprite_method)
+        self._sprite_overrides: Dict[int, Dict[str, Any]] = {}
+        self._sprite_calls: List[Dict[str, Any]] = []
+        self._sprite_call_seq = 0
+        # the big atlas (render.atlas.BigAtlas) once assets load: the render
+        # server and the headless renderer pick it up from here
+        self.atlas = None
         # frames that step(n)'s lazy chunk ran without the entity read-back
         self.lazy_frames = 0
         # the event log of the chunk whose hooks have not fired yet
@@ -595,6 +606,53 @@ class Engine:
 
         # Mouse registered first so entity index 0 is the mouse
         self.register_entity_class(Mouse, 1)
+
+        if images or sheets:
+            self.load_assets(images=images, sheets=sheets)
+
+    def load_assets(
+        self,
+        images: Optional[Dict[str, Any]] = None,
+        sheets: Optional[Dict[str, Any]] = None,
+        atlas_size: int = 1024,
+    ):
+        """The engine-level asset preload (preloadAssets, gameEngine.js:
+        805-889; engine.py:395-460) as one call: load every image and
+        spritesheet, cut the sheet frames, pack everything (and the built-in
+        ``_lightGradient``) into the big atlas, and register the textures
+        and sheets, with their animation index spaces, on ``self.sprites``.
+
+        ``images``: {name: png path or RGBA uint8 ``[H, W, 4]`` array}.
+        ``sheets``: {name: (png path or RGBA array, TexturePacker JSON path
+        or dict)}; the JSON needs "frames" ({name: {"frame": {x, y, w, h}}})
+        and "animations" ({anim: [frame names]}), as
+        ``tools/texture_packer.py`` writes it.
+
+        The atlas lands on ``self.atlas`` and is returned. Callable before
+        or after ``init()``; registration is idempotent, so classes may also
+        register names in ``setup()``."""
+        import json
+        import os
+
+        from .render.atlas import create_big_atlas, load_png
+
+        def as_img(v):
+            if isinstance(v, (str, os.PathLike)):
+                return load_png(os.fspath(v))
+            arr = np.asarray(v, np.uint8)
+            if arr.ndim != 3 or arr.shape[2] != 4:
+                raise ValueError("images must be RGBA uint8 [H, W, 4]")
+            return arr
+
+        imgs = {name: as_img(v) for name, v in (images or {}).items()}
+        sh = {}
+        for name, (img, meta) in (sheets or {}).items():
+            if isinstance(meta, (str, os.PathLike)):
+                with open(os.fspath(meta)) as f:
+                    meta = json.load(f)
+            sh[name] = (as_img(img), meta)
+        self.atlas = create_big_atlas(imgs, sh, size=atlas_size, registry=self.sprites)
+        return self.atlas
 
     # ------------------------------------------------------------------
     # registration (gameEngine.js:292-366, :389-457)
@@ -1214,10 +1272,13 @@ class Engine:
         the neighbour lists and the scope of pair recording. A held event
         chunk's hooks fire first."""
         self._flush_event_log()
-        cfg, geom, _forced = self._solver_plan(self._resolve_spatial())
-        if geom is None:
-            _refuse("a scene with no collider radius (neighbour-list solver)",
-                    "slice C, item 12")
+        cfg = self._resolve_spatial()
+        # the neighbour-list solver runs for solver "neighbors" and for a
+        # scene with no collider radius (engine.py:1244-1264)
+        use_grid = cfg.physics.solver in ("auto", "grid", "pallas")
+        geom, forced = None, False
+        if use_grid:
+            cfg, geom, forced = self._solver_plan(cfg)
         ph = cfg.physics
         dev = self.device
         n = self.world.n_entities
@@ -1229,8 +1290,8 @@ class Engine:
                     solver_in_grid=torch.zeros((n,), dtype=torch.bool, device=dev),
                 )
             w = w.replace(solver_bin_step=-1)
-        shape = layout_shape(geom)
-        pallas = ph.solver == "pallas"
+        shape = layout_shape(geom) if geom is not None else None
+        pallas = ph.solver == "pallas" and geom is not None
 
         def layouts(dtype, names):
             return {k: torch.zeros(shape, dtype=dtype, device=dev) for k in names}
@@ -1258,14 +1319,15 @@ class Engine:
         lg = cfg.logic
         # shadow sprites walk each light's neighbour list, pair recording
         # reads every row's (engine.py:1249-1253)
-        need_neighbors = self._ticks_read_neighbors() or shadows_on or lg.collision_events
+        need_neighbors = (self._ticks_read_neighbors() or shadows_on or lg.collision_events
+                          or not use_grid or forced)
         # hook-scoped recording: only the hooked classes' rows record
         # pairs (cfg.logic.record_all_pairs; engine.py:1368-1387)
         hooked_ranges = tuple((reg.start_index, reg.count) for reg in self.classes.values()
                               if reg.count > 0 and self._class_has_hooks(reg.cls))
         scope_hooked = lg.collision_events and not lg.record_all_pairs and bool(hooked_ranges)
         nbr_specs, light_ranges, hooked_specs = (), (), ()
-        if (need_neighbors and cfg.spatial.per_class_assembly
+        if (need_neighbors and cfg.spatial.per_class_assembly and geom is not None
                 and cfg.spatial.method != "bruteforce"
                 and (not lg.collision_events or scope_hooked)):
             nbr_specs, light_ranges, hooked_specs = self._neighbor_specs(
@@ -1281,7 +1343,7 @@ class Engine:
                 for reg in self.classes.values() if reg.count > 0
             ),
             frame_counts=self._frame_counts(),
-            symmetric=use_symmetric(cfg, geom),
+            symmetric=geom is not None and use_symmetric(cfg, geom),
             residency=residency,
             force_specs=specs or (),
             pin_rows=pin_rows,
@@ -1342,7 +1404,10 @@ class Engine:
                 light_nbr = nbr.replace(payload=None)
         if cfg.logic.collision_events:  # what pair recording reads of the lists
             contact_rows = self._contact_rows(nbr)
-        # the candidate rows (288 MB on boids_15k) go before the solver runs
+        # the neighbour-list solver reads the global lists (engine.py:
+        # 1536-1543); otherwise the candidate rows (288 MB on boids_15k) go
+        # before the solver runs
+        solver_nbr = nbr if plan.solver_geom is None else None
         del nbr
         world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
         if residency:
@@ -1352,7 +1417,8 @@ class Engine:
             )
             world = update_derived(world, cfg)
         else:
-            world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom)
+            world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom,
+                                                  solver_nbr)
             band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
         if cfg.logic.collision_events:
             # contact pairs from the frame-start lists, the one-frame-stale
@@ -1990,7 +2056,9 @@ class Engine:
             "total_steps": self.timer.total_steps,
             "pools": {name: self.get_pool_stats(name) for name in self.classes},
         }
-        for key, value in self.metrics.items():
+        # the metrics reach the host in one copy
+        values = host_copy(list(self.metrics.values())) if self.metrics else []
+        for key, value in zip(self.metrics, values):
             out[key] = int(value)
         return out
 
@@ -2030,9 +2098,7 @@ class Engine:
     def update_physics_config(self, **kwargs) -> None:
         """Live physics updates: ``engine.update_physics_config(gravity=(0, 1))``."""
         phys = dataclasses.replace(self.config.physics, **kwargs).validated()
-        cfg = dataclasses.replace(self.config, physics=phys)
-        _check_supported(cfg)
-        self.config = cfg
+        self.config = dataclasses.replace(self.config, physics=phys)
         self._plan = None
 
     # ------------------------------------------------------------------
@@ -2052,12 +2118,69 @@ class Engine:
         self.world = snap.map_tensors(lambda a: a.to(self.device, copy=True))
 
     # ------------------------------------------------------------------
-    # parts of the reference engine that are not ported yet
+    # rendering (extraction and the headless view; engine.py:2670-2689)
     # ------------------------------------------------------------------
-    def render_packet(self, *args, **kwargs):
-        _refuse("render extraction and rendering", "slice D, item 17")
+    def render_packet(self, max_visible: int = 0) -> RenderPacket:
+        """The visible-entity packet for a host renderer
+        (``render.extract``), compacted on the device and returned as CPU
+        tensors through one copy. ``max_visible`` defaults to
+        ``min(N, 65536)``."""
+        self._require_init()
+        max_visible = max_visible or min(self.world.n_entities, 65536)
+        return packet_to_host(extract_render_packet(self.world, self.config, max_visible))
 
-    screenshot = render_packet
+    def screenshot(self, path: Optional[str], width: int = 0, height: int = 0) -> np.ndarray:
+        """Render the current frame with the headless renderer
+        (``render.headless.render_frame``); writes a PNG at ``path`` (none
+        when it is None) and returns the RGB image."""
+        from .render.headless import render_frame
+
+        return render_frame(self, width or None, height or None, path=path)
+
+    # ------------------------------------------------------------------
+    # renderer sprite-override RPC (gameObject.js:546-582 ->
+    # pixi_worker.js:2009-2053; engine.py:2828-2870): a host-side escape
+    # hatch for driving one entity's renderer sprite directly. Props
+    # persist until cleared; method calls are one-shot and sequence-
+    # numbered, so a polling client replays each once.
+    # ------------------------------------------------------------------
+    def set_sprite_prop(self, index: int, prop: str, value) -> None:
+        """Override a renderer sprite property of entity ``index`` (the
+        setSpriteProp analog, gameObject.js:546-563); ``value=None`` clears
+        it. The web client applies tint, alpha, visible, rotation, scale_x,
+        scale_y and frame."""
+        idx = int(index)
+        if value is None:
+            ov = self._sprite_overrides.get(idx)
+            if ov is not None:
+                ov.pop(str(prop), None)
+                if not ov:
+                    del self._sprite_overrides[idx]
+            return
+        self._sprite_overrides.setdefault(idx, {})[str(prop)] = value
+
+    def call_sprite_method(self, index: int, method: str, *args) -> None:
+        """Queue a one-shot renderer sprite method call for entity
+        ``index`` (the callSpriteMethod analog, gameObject.js:565-582),
+        served on /overrides with an increasing ``seq``; the last 512
+        are kept."""
+        self._sprite_call_seq += 1
+        self._sprite_calls.append({
+            "seq": self._sprite_call_seq,
+            "index": int(index),
+            "method": str(method),
+            "args": list(args),
+        })
+        if len(self._sprite_calls) > 512:
+            del self._sprite_calls[:-512]
+
+    def sprite_overrides_payload(self) -> Dict[str, Any]:
+        """The /overrides JSON body: the persistent prop table and the
+        queued calls."""
+        return {
+            "props": {str(k): dict(v) for k, v in self._sprite_overrides.items()},
+            "calls": list(self._sprite_calls),
+        }
 
     def _require_init(self) -> None:
         if not self._initialized:

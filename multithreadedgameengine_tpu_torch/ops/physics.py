@@ -1,13 +1,16 @@
 """Verlet physics: integrate, substepped constraints, derived properties.
 
-PyTorch counterpart of ``multithreadedgameengine_tpu/ops/physics.py``
-(physics.py:49-130, 285-424): ``verlet_move`` (moveBallsVerlet), the one-axis
-``_boundary`` clamp and bounce, ``update_derived`` (speed and velocity angle),
-the grid branch of ``physics_step``, and the collision-pair recording for
-the Enter/Stay/Exit events (``PER_ENTITY``, ``record_collision_pairs``,
-``compact_pairs``). The constraint pass itself is the
-grid solver in ``ops/physics_grid.py``; the neighbour-list solver
-(``solver="neighbors"``) is not ported yet and is refused.
+PyTorch counterpart of ``multithreadedgameengine_tpu/ops/physics.py``:
+``verlet_move`` (moveBallsVerlet), the one-axis ``_boundary`` clamp and
+bounce, the neighbour-list solver (``PairInvariants``,
+``build_pair_invariants``, ``resolve_collisions_pass``,
+``apply_constraints``: ``solver="neighbors"``, the reference-faithful
+oracle, and the path of a scene with no collider radius), ``update_derived``
+(speed and velocity angle), ``physics_step`` with its solver choice, and the
+collision-pair recording for the Enter/Stay/Exit events (``PER_ENTITY``,
+``record_collision_pairs``, ``compact_pairs``). The grid solver is
+``ops/physics_grid.py``. The neighbour-list solver runs no kernel of its
+own: the reference computes it in XLA, and here it is plain torch ops.
 
 Jacobi, not Gauss-Seidel, exactly as the reference package: every pair of a
 substep reads the substep's starting positions.
@@ -15,16 +18,19 @@ substep reads the substep's starting positions.
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..components import Struct
 from ..config import EngineConfig
 from ..state import World
 from .events import compact_rows
 from .particles import first_k_where
+from .spatial import NeighborLists
 
 _U32 = 0xFFFFFFFF
 
@@ -138,6 +144,127 @@ def _boundary(
     return torch.where(moving, clamped, x), new_px
 
 
+@dataclasses.dataclass
+class PairInvariants(Struct):
+    """Substep-invariant data of every neighbour candidate ``[N, M]``
+    (physics.py:134-150), gathered once a frame: collider attributes do not
+    change within a frame, so only positions are gathered again in each
+    substep."""
+
+    j: torch.Tensor  # int32[N, M] candidate ids (-1 empty)
+    j_safe: torch.Tensor  # int64[N, M], the ids clamped to >= 0 for gathers
+    pair_ok: torch.Tensor  # bool[N, M] both sides active colliders
+    min_dist: torch.Tensor  # f32[N, M] r_i + r_j
+    respond_scale: torch.Tensor  # f32[N, M] i's response share: 0, 0.5 or 1
+    zero_scale: torch.Tensor  # f32[N, M] exact-overlap share (0, 1, 2) x sign
+    zero_ux: torch.Tensor  # f32[N, M] pair-hash jitter direction x
+    zero_uy: torch.Tensor  # f32[N, M] pair-hash jitter direction y
+
+
+def build_pair_invariants(
+    nbr: NeighborLists,
+    active: torch.Tensor,
+    collider_active: torch.Tensor,
+    radius: torch.Tensor,
+    is_trigger: torch.Tensor,
+    is_static: torch.Tensor,
+    salt: int,
+) -> PairInvariants:
+    """The candidates' invariants (physics.py:153-202): one packed gather of
+    the flags (bit 0 active collider, bit 1 trigger, bit 2 static), the
+    radius sum, i's response share (half when both move, full against a
+    static, none when i is static or either is a trigger;
+    physics_worker.js:513-547), the exact-overlap share with its sign (the
+    lower id pushes +, doubled against a static; :459-506) and the
+    pair-hash direction."""
+    n = nbr.ids.shape[0]
+    j = nbr.ids
+    j_safe = torch.clamp(j, min=0).to(torch.int64)
+    i_idx = torch.arange(n, dtype=torch.int32, device=j.device)[:, None]
+
+    ok = active & collider_active
+    flags = (ok.to(torch.int32) | (is_trigger.to(torch.int32) << 1)
+             | (is_static.to(torch.int32) << 2))
+    flags_j = flags[j_safe]
+    ok_j = (j >= 0) & ((flags_j & 1) == 1)
+    trig_j = (flags_j & 2) != 0
+    static_j = (flags_j & 4) != 0
+
+    pair_ok = ok[:, None] & ok_j
+    min_dist = radius[:, None] + radius[j_safe]
+    no_push = is_trigger[:, None] | trig_j | is_static[:, None]
+    respond_scale = torch.where(no_push, 0.0, torch.where(static_j, 1.0, 0.5))
+    sign = torch.where(i_idx < j, 1.0, -1.0)
+    zero_scale = torch.where(no_push, 0.0, torch.where(static_j, 2.0, 1.0)) * sign
+    zero_ux, zero_uy = _pair_hash_dir(i_idx, j, salt)
+    return PairInvariants(
+        j=j, j_safe=j_safe, pair_ok=pair_ok, min_dist=min_dist,
+        respond_scale=respond_scale, zero_scale=zero_scale,
+        zero_ux=zero_ux, zero_uy=zero_uy,
+    )
+
+
+def resolve_collisions_pass(
+    x: torch.Tensor, y: torch.Tensor, inv: PairInvariants, response_strength: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Jacobi separation pass (resolveCollisionsVerlet,
+    physics_worker.js:405-568; physics.py:205-241). Returns (dx, dy, the
+    int32 overlap count of each entity, the bool overlap mask ``[N, M]``).
+
+    ``1 / sqrt``, correctly rounded, where the reference calls
+    ``jax.lax.rsqrt`` (approximate on XLA:CPU), as the grid pair passes do;
+    an exactly coincident pair pushes along the pair-hash direction."""
+    dx = x[:, None] - x[inv.j_safe]
+    dy = y[:, None] - y[inv.j_safe]
+    d2 = dx * dx + dy * dy
+    overlap = inv.pair_ok & (d2 < inv.min_dist * inv.min_dist)
+
+    inv_dist = torch.where(d2 > 0, 1.0 / _sqrt(d2), 0.0)
+    dist = d2 * inv_dist
+    depth = inv.min_dist - dist
+    corr = depth * response_strength * inv.respond_scale
+    push_x = dx * inv_dist * corr
+    push_y = dy * inv_dist * corr
+
+    zero = d2 == 0
+    sep = 0.001
+    zpush_x = inv.zero_ux * sep * inv.zero_scale
+    zpush_y = inv.zero_uy * sep * inv.zero_scale
+
+    contrib_x = torch.where(overlap, torch.where(zero, zpush_x, push_x), 0.0)
+    contrib_y = torch.where(overlap, torch.where(zero, zpush_y, push_y), 0.0)
+    return (torch.sum(contrib_x, dim=1), torch.sum(contrib_y, dim=1),
+            torch.sum(overlap, dim=1, dtype=torch.int32), overlap)
+
+
+def apply_constraints(
+    world: World, nbr: NeighborLists, cfg: EngineConfig
+) -> Tuple[World, torch.Tensor]:
+    """Substepped boundary and collision constraints over the neighbour
+    lists (physics_worker.js:203-217, :323-395; physics.py:244-282):
+    ``sub_step_count`` rounds of the boundary clamp and one Jacobi pass.
+    Returns (world, the last substep's overlap mask ``[N, M]``)."""
+    ph = cfg.physics
+    t, rb, c = world.transform, world.rigid_body, world.collider
+    moving = t.active & rb.active & ~rb.static
+    inv = build_pair_invariants(nbr, t.active, c.active, c.radius, c.is_trigger,
+                                rb.static, world.step_count)
+    x, y, px, py = t.x, t.y, rb.px, rb.py
+    cnt = torch.zeros_like(rb.collision_count)
+    overlap = torch.zeros(nbr.ids.shape, dtype=torch.bool, device=x.device)
+    for _ in range(ph.sub_step_count):
+        x, px = _boundary(x, px, c.radius, cfg.world_width, moving, ph.boundary_elasticity)
+        y, py = _boundary(y, py, c.radius, cfg.world_height, moving, ph.boundary_elasticity)
+        dx, dy, sub_cnt, overlap = resolve_collisions_pass(
+            x, y, inv, ph.collision_response_strength)
+        x, y, cnt = x + dx, y + dy, cnt + sub_cnt
+    world = world.replace(
+        transform=t.replace(x=x, y=y),
+        rigid_body=rb.replace(px=px, py=py, collision_count=cnt),
+    )
+    return world, overlap
+
+
 def update_derived(world: World, cfg: EngineConfig) -> World:
     """speed and velocityAngle (updateDerivedProperties,
     physics_worker.js:575-604)."""
@@ -201,15 +328,26 @@ def compact_pairs(
 
 
 def physics_step(
-    world: World, cfg: EngineConfig, dt_ratio: float, solver_geom
+    world: World, cfg: EngineConfig, dt_ratio: float, solver_geom,
+    nbr: Optional[NeighborLists] = None,
 ) -> Tuple[World, torch.Tensor]:
-    """One physics frame on the grid solver (updateVerlet,
-    physics_worker.js:145-233): Verlet move, the substepped constraints of
-    ``physics_grid.grid_constraints_resident`` (with the bin and attribute
-    caches when the world carries them), derived properties.
-    Returns (world, solver_overflow)."""
-    from .physics_grid import grid_constraints_resident
-
+    """One physics frame (updateVerlet, physics_worker.js:145-233;
+    physics.py:372-425): Verlet move, the substepped constraints, derived
+    properties. Solver "auto", "grid" or "pallas" with a geometry runs the
+    grid solver (``physics_grid.grid_constraints_resident``, with the bin
+    and attribute caches when the world carries them); "neighbors", or no
+    geometry (no collider radius), runs :func:`apply_constraints` over
+    ``nbr`` and raises ``ValueError`` without it. Returns (world,
+    solver_overflow), the overflow 0 on the neighbour-list path."""
     world = verlet_move(world, cfg, dt_ratio)
-    world, _n_binned, overflow = grid_constraints_resident(world, cfg, solver_geom)
+    if cfg.physics.solver in ("auto", "grid", "pallas") and solver_geom is not None:
+        from .physics_grid import grid_constraints_resident
+
+        world, _n_binned, overflow = grid_constraints_resident(world, cfg, solver_geom)
+    else:
+        if nbr is None:
+            raise ValueError("neighbor-list solver requires neighbor lists "
+                             "(cfg.physics.solver='neighbors')")
+        world, _overlap = apply_constraints(world, nbr, cfg)
+        overflow = torch.zeros((), dtype=torch.int32, device=world.device)
     return update_derived(world, cfg), overflow

@@ -79,7 +79,7 @@ import torch
 from ..behavior import read_field, run_logic_phase_masked
 from ..components import BUILTIN_COMPONENTS, ShadowSprites
 from ..config import EngineConfig
-from ..engine import _check_supported, apply_inputs
+from ..engine import apply_inputs
 from ..inputs import InputState
 from ..ops.culling import update_entity_visibility, update_particle_visibility
 from ..ops.decals import default_decal_textures, stamp_decals
@@ -356,7 +356,6 @@ def slab_plan_fields(engine, mesh: SlabMesh, what: str) -> Dict[str, Any]:
         raise ValueError(f"{what} step requires spatial.method='grid'")
     if cfg.physics.solver == "neighbors":
         raise ValueError(f"{what} step requires the grid constraint solver")
-    _check_supported(cfg)  # the neighbour-list solver
     if cfg.logic.screen_events:
         raise NotImplementedError(
             "logic.screen_events under the halo and homed steps: the reference's slab steps "

@@ -645,12 +645,24 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
 
     def unplace_fn(chunks: Sequence[World], gids: Sequence[torch.Tensor]) -> World:
         """The entity-ordered world (homed.py:1032-1041), with chunk 0's
-        replicated leaves; an entity held by no slab reads as zeros."""
+        replicated leaves; an entity held by no slab reads as zeros.
+
+        A gid can be held by two rows: a live insert (``HomedControl``)
+        leaves the inactive row parked on slab 0 in place, as the
+        reference's does. The later row in slab-then-row order wins, as in
+        the reference's numpy assignment: the inserted or arrived row,
+        which the stable merge puts after the parked one. (An
+        ``index_copy_`` of duplicate indices lets whichever CPU thread
+        writes last win.)"""
         rows = torch.cat([pack_world_rows(c, specs) for c in chunks])
         gd = torch.cat(list(gids)).to(torch.int64)
-        out = rows.new_zeros((n + 1, rows.shape[1]))
-        out.index_copy_(0, torch.where(gd >= 0, gd, n), rows)  # free rows -> a spare row
-        return unpack_world_rows(out[:n], chunks[0], specs)
+        pos = torch.arange(gd.numel(), dtype=torch.int64, device=gd.device)
+        last = torch.full((n + 1,), -1, dtype=torch.int64, device=gd.device)
+        # free rows go to a spare entry
+        last.scatter_reduce_(0, torch.where(gd >= 0, gd, n), pos, "amax")
+        last = last[:n]
+        out = torch.where((last >= 0)[:, None], rows[torch.clamp(last, min=0)], 0)
+        return unpack_world_rows(out, chunks[0], specs)
 
     return step_fn, place_fn, unplace_fn, HomedControl(mesh, plan)
 

@@ -753,3 +753,84 @@ def test_checkpoint_on_card(cuda, tmp_path):
         assert torch.equal(getattr(a.world.transform, field), getattr(b.world.transform, field))
     assert torch.equal(a.world.rigid_body.vy, b.world.rigid_body.vy)
     assert a.rng() == b.rng()
+
+
+def test_render_packet_on_card_matches_cpu(cuda):
+    """The render packet extracted on the card equals the packet of the same
+    world copied to a CPU engine, field by field, with and without the
+    Y-sort."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    for y_sorting in (True, False):
+        kw = dict(n_balls=400, seed=123456, world_width=1200.0, world_height=800.0,
+                  renderer=dict(y_sorting=y_sorting))
+        eng, host = make_balls_engine(device=cuda, **kw), make_balls_engine(device="cpu", **kw)
+        eng.step(3)
+        host.restore(eng.snapshot())
+        a, b = eng.render_packet(), host.render_packet()
+        assert int(a.count) == int(b.count) > 0 and a.index.device.type == "cpu"
+        for f in ("index", "x", "y", "screen_x", "tint", "animation_frame"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_publish_on_card_matches_cpu_bytes(cuda):
+    """A publish of the predators scene on the card (particles, decals,
+    shadows, lights): the frame's and the decal PNG's bytes equal those of
+    the same world on the CPU, and the server hands them out over HTTP."""
+    import urllib.request
+
+    from multithreadedgameengine_tpu_torch.models.predators import BLOOD
+    from multithreadedgameengine_tpu_torch.server.render_server import (
+        RenderServer,
+        build_demo_atlas,
+        encode_frame,
+    )
+
+    kw = dict(n_prey=400, n_predators=8, n_lights=5, world_width=1600.0, world_height=1000.0)
+    eng = predators_scene(cuda, **kw)
+    build_demo_atlas(eng)
+    eng.input.camera_x, eng.input.camera_y, eng.input.camera_zoom = 0.0, 0.0, 0.6
+    eng.emitter.emit_batch(x=[400.0, 800.0], y=[300.0, 500.0], **BLOOD)
+    eng.step(30)
+    srv = RenderServer(eng, port=0).start()
+    try:
+        srv.publish(include_decals=True)
+        body = urllib.request.urlopen(f"http://localhost:{srv.port}/frame", timeout=10).read()
+        frame, png = srv._frame, srv._decal_png
+    finally:
+        srv.stop()
+    assert body == frame
+    host = predators_scene("cpu", **kw)
+    host.input.camera_x, host.input.camera_y, host.input.camera_zoom = 0.0, 0.0, 0.6
+    host.restore(eng.snapshot())
+    assert encode_frame(host) == frame
+    hsrv = RenderServer(host, port=0)
+    try:
+        hsrv.publish(include_decals=True)
+        assert hsrv._decal_png == png
+    finally:
+        hsrv.httpd.server_close()
+    n_e, n_p, n_s, n_l = np.frombuffer(frame[8:24], "<u4")
+    assert n_e > 0 and n_p > 0 and n_s > 0 and n_l > 0
+
+
+def test_neighbors_frame_on_card_matches_cpu(cuda):
+    """``solver="neighbors"`` on the card against the CPU: 3 frames of 400
+    balls, contact counts exact, positions within 4 ulps at the world's
+    extent (the lists' sums run in another order on the card)."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    snaps = []
+    for device in (cuda, "cpu"):
+        eng = make_balls_engine(n_balls=400, seed=123456, device=device, world_width=1200.0,
+                                world_height=800.0, physics=dict(solver="neighbors"))
+        eng.input.set_mouse(600.0, 400.0)
+        eng.input.mouse_button(0, True)
+        m = eng.step(3)
+        assert eng._plan.solver_geom is None and int(m["n_binned"]) == 401
+        snaps.append(eng.snapshot())
+    a, b = snaps
+    assert torch.equal(a.rigid_body.collision_count, b.rigid_body.collision_count)
+    tol = 4 * float(np.spacing(np.float32(1200.0)))
+    assert (a.transform.x - b.transform.x).abs().max().item() <= tol
+    assert (a.transform.y - b.transform.y).abs().max().item() <= tol

@@ -498,6 +498,32 @@ class TestLiveControlPlane:
         assert_entities_equal(s_live, s_rep)
         assert int(m1["active_count"]) == int(m2["active_count"]) == 255 + K + 1
 
+    def test_unplace_reads_the_later_of_two_rows(self):
+        """A live insert leaves each spawned gid's inactive row parked on
+        slab 0 beside the inserted row, as the reference's does; unplace
+        reads the later row in slab-then-row order (the reference's numpy
+        assignment), however many CPU threads copy the rows."""
+        K = 40
+        eng = self._engine()
+        h = PortHomed(eng, headroom=8.0)
+        new = eng.spawn_batch("Boid", K, **self._spawn_args(K))
+        eng._flush_pending()
+        rows = h.ctl.pack_rows(eng.world, new)
+        h.chunks, h.gids, _denied = h.ctl.insert(h.chunks, h.gids, rows, new)
+        held = torch.cat(h.gids)
+        held = held[held >= 0]
+        assert held.numel() - torch.unique(held).numel() == K
+        idx = torch.as_tensor(new, dtype=torch.int64)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(8)
+        try:
+            for _ in range(20):
+                w = h.unplace(h.chunks, h.gids)
+                assert bool(w.transform.active[idx].all())
+                assert torch.equal(pack_world_rows(w, h.step.plan.leaf_specs)[idx], rows)
+        finally:
+            torch.set_num_threads(threads)
+
     def test_live_remove_bit_exact_vs_replacement(self):
         eng1 = self._engine()
         victims = np.sort(eng1.classes["Boid"].pool.active_indices())[:5].astype(np.int32)

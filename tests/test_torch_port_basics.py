@@ -135,8 +135,27 @@ def test_mulberry32_streams_match_reference(seed):
     (dict(solver="neighbors"), {}),
 ], ids=["neighbors"])
 def test_unported_config_is_refused(physics, other):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(make_config(physics=physics, **other), device="cpu")
+    """Refused until the neighbour-list solver was ported (ROADMAP item
+    12): the configuration builds, and a ball scene runs 2 frames on the
+    lists, as the JAX Engine does (integers exact, positions within 2e-3,
+    ``tests/test_torch_neighbor_solver.py``'s bar)."""
+    from multithreadedgameengine_tpu.models.balls import make_balls_engine as ref_balls
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    assert Engine(make_config(physics=physics, **other), device="cpu").config.physics.solver == (
+        "neighbors")
+    kw = dict(n_balls=60, seed=4, world_width=300.0, world_height=200.0, physics=physics)
+    ej, et = ref_balls(**kw), make_balls_engine(device="cpu", **kw)
+    ej.step(2)
+    m = et.step(2)
+    assert et._plan.solver_geom is None and int(m["n_binned"]) == 61
+    a, b = ej.snapshot(), et.world
+    np.testing.assert_array_equal(b.rigid_body.collision_count.numpy(),
+                                  np.asarray(a.rigid_body.collision_count))
+    np.testing.assert_allclose(b.transform.x.numpy(), np.asarray(a.transform.x), rtol=0,
+                               atol=2e-3)
+    np.testing.assert_allclose(b.transform.y.numpy(), np.asarray(a.transform.y), rtol=0,
+                               atol=2e-3)
 
 
 @pytest.mark.parametrize("logic", [
@@ -224,18 +243,40 @@ def test_slice_b_config_runs(physics):
 
 
 def test_unported_runtime_updates_and_apis_are_refused():
-    eng = Engine(balls_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.update_physics_config(solver="neighbors")
-    for api in (eng.render_packet, eng.screenshot):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            api()
+    """Refused until items 12 and 17 were ported: the solver switches at
+    run time, and the render packet and the screenshot run, with the
+    reference's packet and image for the same world."""
+    import jax
+
+    from multithreadedgameengine_tpu.models.balls import make_balls_engine as ref_balls
+    from multithreadedgameengine_tpu_torch.interop import world_from_jax
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    kw = dict(n_balls=40, seed=8, world_width=400.0, world_height=300.0)
+    ej, et = ref_balls(**kw), make_balls_engine(device="cpu", **kw)
+    et.update_physics_config(solver="neighbors")
+    et.step(1)
+    assert et._plan.solver_geom is None and et._plan.need_neighbors
+    ej.step(2)
+    et.restore(world_from_jax(jax.device_get(ej.world), "cpu"))
+    for e in (ej, et):
+        e.input.camera_x = e.input.camera_y = 0.0
+    a, b = ej.render_packet(), et.render_packet()
+    assert int(b.count) == int(a.count) > 0
+    np.testing.assert_array_equal(b.index.numpy(), np.asarray(a.index))
+    np.testing.assert_array_equal(b.y.numpy(), np.asarray(a.y))
+    np.testing.assert_array_equal(et.screenshot(None, 160, 120), ej.screenshot(None, 160, 120))
 
 
 def test_neighbour_reading_tick_is_refused():
-    """Since slice C1 a tick that reads neighbours registers and runs; what
-    is still refused is the scene it needs the neighbour-list solver for
-    (no collider radius: ROADMAP slice C, item 12)."""
+    """Since slice C1 a tick that reads neighbours registers and runs; the
+    scene it needs the neighbour-list solver for (no collider radius) was
+    refused until item 12, and now runs as the JAX Engine runs it: the
+    same neighbour counts in the tick's writes, positions within 2 ulps."""
+    import jax.numpy as jnp
+
+    import multithreadedgameengine_tpu as ref
+    from multithreadedgameengine_tpu.models.balls import balls_config as ref_balls_config
 
     class Reader(EntityClass):
         components = [RigidBody]
@@ -244,12 +285,28 @@ def test_neighbour_reading_tick_is_refused():
         def tick(ctx):
             return {"rigid_body.ax": ctx.neighbor_count.to(torch.float32)}
 
+    class RefReader(ref.EntityClass):
+        components = [ref.RigidBody]
+
+        @staticmethod
+        def tick(ctx):
+            return {"rigid_body.ax": ctx.neighbor_count.astype(jnp.float32)}
+
     eng = Engine(balls_config(), device="cpu")
-    eng.register_entity_class(Reader, 4)
-    eng.init()
-    eng.spawn("Reader", x=10.0, y=10.0)
-    with pytest.raises(NotImplementedError, match="slice C, item 12"):
-        eng.step(1)
+    reng = ref.Engine(ref_balls_config())
+    for e, cls in ((eng, Reader), (reng, RefReader)):
+        e.register_entity_class(cls, 4)
+        e.init()
+        for x in (10.0, 30.0, 50.0):
+            e.spawn(cls.__name__, x=x, y=10.0)
+        e.step(1)
+    assert eng._plan.solver_geom is None and eng._plan.need_neighbors
+    w, r = eng.world, reng.snapshot()
+    np.testing.assert_array_equal(w.transform.active.numpy(), np.asarray(r.transform.active))
+    np.testing.assert_array_equal(w.rigid_body.vx.numpy(), np.asarray(r.rigid_body.vx))
+    for f in ("x", "y"):
+        np.testing.assert_array_max_ulp(getattr(w.transform, f).numpy(),
+                                        np.asarray(getattr(r.transform, f)), maxulp=2)
 
 
 def test_device_is_required():

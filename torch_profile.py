@@ -20,7 +20,11 @@ rungs (``chip_smoke.py`` phases 6, 8 and 12: the 1M balls scene, the
 config 2 (``churn_10k``, phase 15: the demo scene churning 256 despawns and
 256 spawns a frame through ``FramePlan`` and ``Engine.run_plan`` in chunks
 of 30, as ``run_ladder.py``'s ``rung_churn`` runs it; a chunk's wall time
-includes building its plan) -- it warms up, then:
+includes building its plan), the demo scene with the render server's
+publish every 2 steps as ``server/render_server.py``'s ``run_scene`` drives
+it, the camera over the whole world (``render_balls_10k``, ``chip_smoke.py``
+phase 21; no HTTP client), and the demo scene on the neighbour-list solver
+(``neighbors_10k``, ``solver="neighbors"``, phase 20) -- it warms up, then:
 
 - times three chunks of ``--frames`` frames with the host clock, each
   ending in ``torch.cuda.synchronize`` (profiler off);
@@ -32,6 +36,8 @@ includes building its plan) -- it warms up, then:
   64-stamp decal loop alone (``ops.decals.stamp_decals`` on the stamp batch
   of the cell's last pool), and reports the device time of one and its
   share of a frame's;
+- for render_balls_10k, profiles ``--frames`` calls of ``encode_frame``
+  alone (the frame's extraction, compaction and one copy to the host);
 - for predators_15k_events, profiles ``--frames`` calls of the event
   difference alone (``ops.events.diff_pairs`` on the cell's last pair
   tables), and times each host read and dispatch of a chunk's event log
@@ -56,6 +62,7 @@ import time
 from pathlib import Path
 
 from chip_smoke import (
+    BALLS_CAMERA,
     BOIDS_N,
     BOIDS_WORLD,
     CHURN,
@@ -94,6 +101,8 @@ CELLS = {
     "homed_1m_d4": dict(homed=True, n_balls=HALO_N - 1, seed=123456,
                         world_width=HALO_WORLD[0], world_height=HALO_WORLD[1]),
     "churn_10k": dict(n_balls=10_000, seed=123456, churn=True),
+    "render_balls_10k": dict(n_balls=10_000, seed=123456, render=True),
+    "neighbors_10k": dict(n_balls=10_000, seed=123456, physics=dict(solver="neighbors")),
 }
 
 
@@ -108,8 +117,14 @@ def engine_runner(kw: dict):
     from multithreadedgameengine_tpu_torch.ops.events import diff_pairs
     from multithreadedgameengine_tpu_torch.ops.particles import update_particles
 
+    from multithreadedgameengine_tpu_torch.server.render_server import (
+        RenderServer,
+        encode_frame,
+    )
+
     kw = dict(kw)
     churn = kw.pop("churn", False)
+    render = kw.pop("render", False)
     if "boids" in kw:
         eng = boids_engine("cuda", kw["boids"], BOIDS_WORLD, CONFIG3_SPATIAL)
     elif "predators" in kw:
@@ -117,10 +132,19 @@ def engine_runner(kw: dict):
     else:
         eng = make_balls_engine(device="cuda", **kw)
     rng = np.random.default_rng(7)
+    if render:
+        eng.input.camera_x, eng.input.camera_y, eng.input.camera_zoom = BALLS_CAMERA
+        # publish() alone: the server's socket is not needed
+        srv = RenderServer(eng, port=0)
+        srv.httpd.server_close()
 
     def run(frames):
         if churn:
             churn_frames(eng, rng, frames, CHURN, CHURN_CHUNK)
+        elif render:
+            for _ in range(frames // 2):
+                eng.step(2)
+                srv.publish()
         else:
             eng.step(frames)
         eng.sync()
@@ -137,7 +161,9 @@ def engine_runner(kw: dict):
         eng._dispatch_logged_events = timed_dispatch
 
     def info():
-        out = {"kernel": "K2" if eng._plan.symmetric else "K1",
+        plan = eng._plan
+        out = {"kernel": ("none" if plan.solver_geom is None  # the neighbour-list solver
+                          else "K2" if plan.symmetric else "K1"),
                "residency": eng._plan.residency, "lazy_frames": eng.lazy_frames}
         if reads:
             out["event_log"] = {
@@ -166,6 +192,8 @@ def engine_runner(kw: dict):
                    w.prev_collision_pair_count)
 
     alone = {}
+    if render:
+        alone["encode_frame"] = lambda: encode_frame(eng)
     if kw.get("events"):
         alone["diff_pairs"] = event_diff
     if "boids" in kw or ("predators" in kw and not kw.get("events")):
@@ -311,7 +339,8 @@ def main() -> int:
               + "".join(f" {part}_device_ms={r[part + '_device_ms']:.4f} "
                         f"{part}_device_ops={r[part + '_device_ops']:.1f} "
                         f"{part}_share={r[part + '_share']:.3f}"
-                        for part in ("neighbor_lists", "stamp_decals", "diff_pairs")
+                        for part in ("neighbor_lists", "stamp_decals", "diff_pairs",
+                                     "encode_frame")
                         if part + "_share" in r)
               + (f" event_log={json.dumps(r['event_log'])}" if "event_log" in r else ""),
               flush=True)
