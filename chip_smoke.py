@@ -181,7 +181,30 @@ Phases, each printing one line or more before the last:
    atlas endpoints, the decal PNG, non-empty particle, shadow and light
    sections; ``[render_packet]``);
 23. ``Engine.screenshot`` of phase 22's world on the card against its CPU
-   copy: the same PNG bytes (``[screenshot]``).
+   copy: the same PNG bytes (``[screenshot]``);
+24. slice F, the process mesh: four gloo ranks on the card, started once
+   by ``dryrun.dryrun_multichip`` after the kernels are built (every
+   message staged through pinned host memory, the only host reads a
+   dist frame makes): every collective against ``SlabMesh`` on the same
+   inputs, bit for bit (``[dist_collectives]``);
+25. in the same ranks, every rung of the reference's dry run with its
+   asserts (``[dist_dryrun]``), then phases 6, 8 and 12-14's slab runs
+   again over the process mesh with the same frames, each rank's chunk
+   digests equal to the in-process run's chunk, every rank's replicated
+   leaves alike, one frame a rank under the sync check:
+   ``[dist_halo_boids_102k_d4]``, ``[dist_homed_boids_102k_d4]``,
+   ``[dist_halo_1m_d4]``, ``[dist_homed_1m_d4]``, ``[dist_halo_mixed]``,
+   ``[dist_homed_mixed]``; and the entity-sharded step on balls_10k
+   (10,000 entities) against ``Engine.step`` (``[dist_sharded_balls_10k]``):
+   steps/s beside the in-process rate, the bytes each rank's mesh moves
+   and stages a frame, its calls a frame, and the mesh's share of one
+   instrumented frame (rank 0, a sync around each mesh call) -- one card,
+   no scaling figure;
+26. NCCL at ``world_size = torch.cuda.device_count()`` (one rank a card):
+   the halo boids cell against ``SlabMesh`` at the same D
+   (``[nccl_halo_boids_102k]``; the line before says the count);
+27. each dist cell's K3 launches (K1 on the sharded cell), gathered to
+   rank 0, in the kernel line as ``launches_dist_*``.
 
 Kernel times are CUDA events around one replay of a CUDA graph of 50-200
 launches (the kernel's own time; the wrapper's host cost is not in it);
@@ -278,6 +301,9 @@ RENDER_STEPS = 2 * RENDER_CHUNK
 BALLS_CAMERA = (0.0, 0.0, 0.15)
 PUBLISH_TIMED = 10
 SHOT_SIZE = (480, 270)
+# slice F: the process mesh's ranks (four on one card over gloo), the
+# deadline of a run of ranks, the sharded cell's frames and the NCCL cell's
+DIST_RANKS, DIST_DEADLINE_S, SHARDED_FRAMES, NCCL_FRAMES = 4, 600.0, 22, 6
 
 
 # Each kernel against its plain version: contact counts must match exactly;
@@ -682,12 +708,35 @@ def finite(w) -> bool:
     return bool((torch.isfinite(w.transform.x) & torch.isfinite(w.transform.y)).all().item())
 
 
-def halo_phase(dev):
+def halo_balls_engine(dev):
+    """The halo scaling benchmark's balls scene (``benchmarks/
+    halo_scaling.py:104-110``): ``HALO_N - 1`` balls and the mouse in
+    ``HALO_WORLD``, seed 123456, queued spawns flushed."""
+    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
+
+    eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
+                            world_width=HALO_WORLD[0], world_height=HALO_WORLD[1])
+    eng._flush_pending()
+    return eng
+
+
+def chunk_digests(chunks, gids=None):
+    """Each chunk world's leaf digests (``dryrun.leaf_digests``), with its
+    gid tensor's under the homed step: what a rank of the process mesh
+    reports for its slab."""
+    from multithreadedgameengine_tpu_torch.dryrun import leaf_digests, tensor_digest
+
+    if gids is None:
+        return [leaf_digests(c) for c in chunks]
+    return [dict(leaf_digests(c), gids=tensor_digest(g)) for c, g in zip(chunks, gids)]
+
+
+def halo_phase(dev, inproc):
     """Phase 6, slice E1's main path: K3 parity on a synthetic grid, the 1M
     halo rung on 4 slabs (launch counts, overflow, K3 parity and timing
     on one slab grid), and the 100k halo-against-single-device check.
     Returns K3's launches on the rung, its times, bound, slab shape and
-    parity errors."""
+    parity errors; the rung's chunk digests go into ``inproc``."""
     import torch
 
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
@@ -706,9 +755,7 @@ def halo_phase(dev):
                                     None)[0])
 
     # (b) the 1M halo rung: 4 slabs on one card
-    halo_eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
-                                 world_width=HALO_WORLD[0], world_height=HALO_WORLD[1])
-    halo_eng._flush_pending()
+    halo_eng = halo_balls_engine(dev)
     mesh = make_mesh(HALO_SLABS, dev)
     step, place = make_halo_step(halo_eng, mesh, oversub=4.0)
     hplan = step.plan
@@ -743,6 +790,8 @@ def halo_phase(dev):
     check(k3_h == expected_k3 and k1_h == 0 and k2_h == 0,
           f"halo: K3 launched {k3_h} (expected {expected_k3}), K1 {k1_h}, K2 {k2_h}")
     check(chunks[0].step_count == frames_h, "halo: step_count")
+    inproc["halo_1m_d4"] = dict(digests=chunk_digests(chunks), steps_per_s=HALO_FRAMES / dt,
+                                frames=frames_h)
     slab_args = slab_grid_args(step, chunks, mesh)
     err, (_x, _y, kc) = kernel_vs_plain(k3, k3_plain, "halo_1m_slab1", slab_args, None)
     errs.append(err)
@@ -761,7 +810,8 @@ def halo_phase(dev):
     eh, es = make_balls_engine(**scene_c), make_balls_engine(**scene_c)
     for e in (eh, es):  # both plans see the spawned radii (same solver grid)
         e._flush_pending()
-    step_c, place_c = make_halo_step(eh, make_mesh(HALO_SLABS, dev), oversub=float(HALO_SLABS))
+    mesh_c = make_mesh(HALO_SLABS, dev)
+    step_c, place_c = make_halo_step(eh, mesh_c, oversub=float(HALO_SLABS))
     chunks_c = place_c(eh.world)
     zero_counts()
     for _ in range(10):
@@ -772,7 +822,7 @@ def halo_phase(dev):
     k1_c, k2_c, _k3 = read_counts()
     check(es._plan.solver_geom == step_c.plan.solver_geom,
           f"100k: geometries differ: {es._plan.solver_geom} vs {step_c.plan.solver_geom}")
-    a, b = unplace_fn(chunks_c), es.world
+    a, b = unplace_fn(chunks_c, mesh_c), es.world
     same = {f: bool(torch.equal(getattr(c(a), f), getattr(c(b), f)))
             for c, f in ((lambda s: s.transform, "x"), (lambda s: s.transform, "y"),
                          (lambda s: s.rigid_body, "px"), (lambda s: s.rigid_body, "py"),
@@ -1352,7 +1402,7 @@ def events_chunk(dev):
     check(all(same.values()) and base[1], f"events_chunk: hook calls differ: {same}")
 
 
-def halo_boids_phase(dev, errs):
+def halo_boids_phase(dev, errs, inproc):
     """The halo benchmark's boids scene on 4 slabs against Engine.step,
     then K3 against its plain version on one slab grid of that run, timed
     there. Returns K3's launches on the scene and its times.
@@ -1371,7 +1421,8 @@ def halo_boids_phase(dev, errs):
                            solver_predicated="off") for _ in range(2))
     for e in (eh, es):
         e._flush_pending()
-    step, place = make_halo_step(eh, make_mesh(HALO_SLABS, dev), oversub=HALO_BOIDS_OVERSUB)
+    mesh = make_mesh(HALO_SLABS, dev)
+    step, place = make_halo_step(eh, mesh, oversub=HALO_BOIDS_OVERSUB)
     plan = step.plan
     chunks = place(eh.world)
     ins = eh.input.snapshot(dev)
@@ -1387,7 +1438,7 @@ def halo_boids_phase(dev, errs):
     zero_counts()
     es.step(HALO_BOIDS_FRAMES, block=True)
     k1_s, k2_s, k3_s = read_counts()
-    a, b = unplace_fn(chunks), es.world
+    a, b = unplace_fn(chunks, mesh), es.world
     diff = {}
     for cname, fname, dt_ in entity_leaf_specs(a):
         u, v = getattr(_get_comp(a, cname), fname), getattr(_get_comp(b, cname), fname)
@@ -1413,6 +1464,9 @@ def halo_boids_phase(dev, errs):
     check(k1_s == HALO_BOIDS_FRAMES * subs and k3_s == 0 and k2_s == 0,
           f"halo_boids: Engine.step launched K1 {k1_s}, K2 {k2_s}, K3 {k3_s}")
     check(not diff, f"halo_boids: the halo step and Engine.step differ: {diff}")
+    inproc["halo_boids_102k_d4"] = dict(digests=chunk_digests(chunks),
+                                        steps_per_s=(HALO_BOIDS_FRAMES - 1) / dt,
+                                        frames=HALO_BOIDS_FRAMES)
 
     # the same scene under the homed step, against both
     from multithreadedgameengine_tpu_torch.parallel import make_homed_step
@@ -1449,6 +1503,9 @@ def halo_boids_phase(dev, errs):
           f"homed_boids_102k_d4: K3 launched {k3_o}")
     check(not diff_s and not diff_h,
           f"homed_boids_102k_d4: the homed step differs: {diff_s} (single), {diff_h} (halo)")
+    inproc["homed_boids_102k_d4"] = dict(digests=chunk_digests(c, g),
+                                         steps_per_s=HALO_BOIDS_FRAMES / dt_o,
+                                         frames=HALO_BOIDS_FRAMES)
     del eo, c, g, o
     ck = kernels()
     args = slab_grid_args(step, chunks, make_mesh(HALO_SLABS, dev))
@@ -1695,7 +1752,7 @@ def shadows_equal(a, b) -> bool:
         for f in ("x", "y", "rotation", "scale_x", "scale_y", "alpha", "radius"))
 
 
-def halo_predators_phase(dev):
+def halo_predators_phase(dev, inproc):
     """Phase 12: the mixed scene on 4 slabs through the halo step, one frame
     under the sync check. Returns (K3 launches, the run's state for the
     homed comparison)."""
@@ -1704,7 +1761,8 @@ def halo_predators_phase(dev):
     from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, unplace_fn
 
     eng = halo_predators_engine(dev)
-    step, place = make_halo_step(eng, make_mesh(HALO_SLABS, dev), oversub=HALO_PRED_OVERSUB)
+    mesh = make_mesh(HALO_SLABS, dev)
+    step, place = make_halo_step(eng, mesh, oversub=HALO_PRED_OVERSUB)
     plan = step.plan
     ins = eng.input.snapshot(dev)
     zero_counts()
@@ -1714,7 +1772,7 @@ def halo_predators_phase(dev):
     frames = HALO_PRED_WARMUP + 1 + HALO_PRED_FRAMES
     subs = plan.cfg.physics.sub_step_count
     mi = {k: int(v.item()) for k, v in m.items()}
-    w = unplace_fn(chunks)
+    w = unplace_fn(chunks, mesh)
     ok = finite(w)
     shadows = int(w.shadow_sprites.active.sum().item())
     log("halo_predators_d4", card=repr(card_name_and_limit()), entities=w.n_entities,
@@ -1737,6 +1795,7 @@ def halo_predators_phase(dev):
     check(mi["collision_pair_count"] > 0 and shadows > 0 and mi["active_particles"] > 0,
           f"halo_predators_d4: no pairs, shadows or particles: {mi}, shadows {shadows}")
     check(mi["n_binned"] == w.n_entities, f"halo_predators_d4: n_binned {mi['n_binned']}")
+    inproc["halo_mixed"] = dict(digests=chunk_digests(chunks), steps_per_s=sps, frames=frames)
     del eng, chunks
     return k3, dict(world=w, frames=frames, steps_per_s=sps)
 
@@ -1833,8 +1892,8 @@ def slab_events_reference(dev):
     eh, calls_h, emits_h = events_scene(dev, 1)
     for e in (es, eh):
         e._flush_pending()
-    step, place = make_halo_step(eh, make_mesh(HALO_EVENT_SLABS, dev), oversub=float(
-        HALO_EVENT_SLABS))
+    mesh = make_mesh(HALO_EVENT_SLABS, dev)
+    step, place = make_halo_step(eh, mesh, oversub=float(HALO_EVENT_SLABS))
     chunks = place(eh.world)
     ins = eh.input.snapshot(dev)
     tables_s, tables_h = [], []
@@ -1842,10 +1901,10 @@ def slab_events_reference(dev):
     for _ in range(PRED_REF_FRAMES):
         es.step(1)
         tables_s.append(event_tables(es))
-        chunks, m = frame_with_hooks(eh, step, chunks, ins, unplace_fn)
+        chunks, m = frame_with_hooks(eh, step, chunks, ins, lambda c: unplace_fn(c, mesh))
         tables_h.append(event_tables(eh))
     k1, k2, k3 = read_counts()
-    diff = world_diff(unplace_fn(chunks), es.world)
+    diff = world_diff(unplace_fn(chunks, mesh), es.world)
     stays = sum(len(t[2]) for t in tables_s)
     same_events = [t[1:] for t in tables_s] == [t[1:] for t in tables_h]
     log("halo_events_reference", prey=PRED_REF["n_prey"], slabs=HALO_EVENT_SLABS,
@@ -1870,11 +1929,12 @@ def slab_events_reference(dev):
             e.step(3)
             runs[how] = e.snapshot()
         elif how == "halo":
-            s, p = make_halo_step(e, make_mesh(HALO_SLABS, dev))
+            mesh = make_mesh(HALO_SLABS, dev)
+            s, p = make_halo_step(e, mesh)
             c = p(e.world)
             for _ in range(3):
                 c, _m = s(c, ins)
-            runs[how] = unplace_fn(c)
+            runs[how] = unplace_fn(c, mesh)
         else:
             s, p, u, _ctl = make_homed_step(e, make_mesh(HALO_SLABS, dev), headroom=float(
                 HALO_SLABS))
@@ -1910,7 +1970,7 @@ def homed_slab_grid_args(step, chunks, gids, mesh, d):
             float(plan.cfg.physics.collision_response_strength))
 
 
-def homed_phase(dev, halo_sps, errs):
+def homed_phase(dev, halo_sps, errs, inproc):
     """Phase 13: halo_1m_d4's scene through the homed step (headroom
     1.125, as ``benchmarks/halo_scaling.py:150-186`` runs it), one frame
     under the sync check; K3 on its short-band slab against its plain
@@ -1923,9 +1983,7 @@ def homed_phase(dev, halo_sps, errs):
     from multithreadedgameengine_tpu_torch.parallel import make_homed_step, make_mesh
 
     ck = kernels()
-    eng = make_balls_engine(n_balls=HALO_N - 1, seed=SEED, device=dev,
-                            world_width=HALO_WORLD[0], world_height=HALO_WORLD[1])
-    eng._flush_pending()
+    eng = halo_balls_engine(dev)
     mesh = make_mesh(HALO_SLABS, dev)
     step, place, _unplace, _ctl = make_homed_step(eng, mesh, headroom=HOMED_HEADROOM)
     plan = step.plan
@@ -1956,6 +2014,8 @@ def homed_phase(dev, halo_sps, errs):
     check(int(m["active_count"].item()) == HALO_N, "homed_1m_d4: entities lost")
     check(k3 == frames * subs * HALO_SLABS and k1 == 0 and k2 == 0,
           f"homed_1m_d4: K3 {k3}, K1 {k1}, K2 {k2} launches")
+    inproc["homed_1m_d4"] = dict(digests=chunk_digests(chunks, gids), steps_per_s=sps,
+                                 frames=frames)
 
     # K3 on a slab whose band is shorter than the padded grid's rows
     short = [d for d, n in enumerate(plan.band_len) if n < plan.slab_geom.rows]
@@ -2020,7 +2080,7 @@ def homed_phase(dev, halo_sps, errs):
                     launches_homed_1m=k3, launches_homed_100k=k3_c)
 
 
-def homed_mixed_phase(dev, halo_run):
+def homed_mixed_phase(dev, halo_run, inproc):
     """Phase 14: the mixed scene of phase 12 under the homed step, one frame
     under the sync check, against the halo step's run of the same frames:
     entities, event tables, pool, canvas and shadows identical. Returns K3's
@@ -2063,6 +2123,8 @@ def homed_mixed_phase(dev, halo_run):
           f"homed_mixed: K3 {k3}, K1 {k1}, K2 {k2} launches")
     check(not diff and same_shadows,
           f"homed_mixed: the homed and halo steps differ: {diff}, shadows {same_shadows}")
+    inproc["homed_mixed"] = dict(digests=chunk_digests(chunks, gids), steps_per_s=sps,
+                                 frames=frames)
     return k3
 
 
@@ -2731,6 +2793,191 @@ def screenshot_phase(eng):
     check(int((img.std(axis=2) > 5).sum()) > 100, "screenshot: nothing drawn")
 
 
+# ---------------------------------------------------------------------------
+# slice F: the process mesh, one slab per process
+# ---------------------------------------------------------------------------
+
+#: the staging copies of gloo on a card, the only host reads a dist frame
+#: makes (``parallel.dist``), exempt from the sync check
+STAGING = "ProcessMesh._to_host,ProcessMesh._to_card"
+
+
+def dist_cells(inproc):
+    """The cells phase 25 runs after the dry run's rungs, in the same four
+    processes: each in-process slab run of phases 6, 8 and 12-14 again over
+    the process mesh, its frames laid out as the in-process run's (warm-up,
+    one frame under the sync check, timed frames, one instrumented frame),
+    and the sharded step on balls_10k."""
+    from multithreadedgameengine_tpu_torch import dryrun
+
+    boids = dict(scene=boids_engine, args=(HALO_BOIDS_N - 1, HALO_BOIDS_WORLD,
+                                           HALO_BOIDS_SPATIAL),
+                 kwargs=dict(solver_predicated="off"))
+    return [
+        (dryrun.halo_cell, dict(name="dist_halo_boids_102k_d4", frames=inproc[
+            "halo_boids_102k_d4"]["frames"], warmup=2, oversub=HALO_BOIDS_OVERSUB, **boids)),
+        (dryrun.homed_cell, dict(name="dist_homed_boids_102k_d4", frames=inproc[
+            "homed_boids_102k_d4"]["frames"], warmup=2, headroom=HOMED_HEADROOM, **boids)),
+        (dryrun.halo_cell, dict(name="dist_halo_1m_d4", scene=halo_balls_engine,
+                                frames=inproc["halo_1m_d4"]["frames"], warmup=2, oversub=4.0)),
+        (dryrun.homed_cell, dict(name="dist_homed_1m_d4", scene=halo_balls_engine,
+                                 frames=inproc["homed_1m_d4"]["frames"], warmup=HALO_WARMUP,
+                                 headroom=HOMED_HEADROOM)),
+        (dryrun.halo_cell, dict(name="dist_halo_mixed", scene=halo_predators_engine,
+                                frames=inproc["halo_mixed"]["frames"], warmup=HALO_PRED_WARMUP,
+                                oversub=HALO_PRED_OVERSUB)),
+        (dryrun.homed_cell, dict(name="dist_homed_mixed", scene=halo_predators_engine,
+                                 frames=inproc["homed_mixed"]["frames"],
+                                 warmup=HALO_PRED_WARMUP, headroom=HOMED_MIXED_HEADROOM)),
+        (dryrun.sharded_cell, dict(name="dist_sharded_balls_10k", scene=dryrun.balls_scene,
+                                   args=(N_MAIN,), frames=SHARDED_FRAMES, warmup=2)),
+    ]
+
+
+def sharded_reference(dev, n_ranks):
+    """balls_10k's entity-sharded scene through ``Engine.step`` for the
+    sharded cell's frames, cut into each rank's rows as ``shard_world``
+    cuts them: the digests each rank must report. Returns (digests, steps/s
+    of the frames after the first two)."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch import dryrun
+    from multithreadedgameengine_tpu_torch.parallel import ProcessMesh, shard_world
+
+    eng = dryrun.balls_scene(dev, N_MAIN)
+    for _ in range(2):
+        eng.step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_FRAMES - 2):
+        eng.step(1)
+    torch.cuda.synchronize()
+    sps = (SHARDED_FRAMES - 2) / (time.perf_counter() - t0)
+    # a rank's view of the mesh, for shard_world's cut (no group is joined)
+    cuts = [shard_world(eng.world, ProcessMesh(r, n_ranks, dev, "gloo")) for r in range(n_ranks)]
+    return [dryrun.leaf_digests(c) for c in cuts], sps
+
+
+def report_cell(reps, card, expect=None, inproc_sps=None, expected=None):
+    """One process-mesh cell's line, and its checks: every rank's chunk
+    digests equal to the in-process run's (``expect``, one per slab),
+    every rank's replicated leaves alike, no host read in the checked
+    frame, and each kernel's launches on every rank as ``expected``
+    ({kernel: launches a rank})."""
+    r0 = reps[0]
+    name = r0["cell"]
+    got = [r["digests"][0] for r in reps]
+    diff = sorted({k for d, (a, b) in enumerate(zip(got, expect or got))
+                   for k in set(a) | set(b) if a.get(k) != b.get(k)})
+    replicated_alike = all(r.get("replicated") == r0.get("replicated") for r in reps)
+    launches = r0["launches_by_rank"]
+    log(name, card=repr(card), ranks=r0["ranks"], backend=r0["backend"], device=r0["device"],
+        entities=r0["entities"], frames=r0["frames"], timed_frames=r0["timed_frames"],
+        steps_per_s=r0["steps_per_s"], in_process_steps_per_s=inproc_sps,
+        bytes_per_frame=r0["bytes_per_frame"], sent_per_frame=r0["sent_per_frame"],
+        received_per_frame=r0["received_per_frame"], staged_per_frame=r0["staged_per_frame"],
+        mesh_calls_per_frame=r0["mesh_calls_per_frame"], mesh_s=r0["mesh_s"],
+        frame_s=r0["frame_s"], mesh_share=r0["mesh_share"],
+        bit_equal=bool(expect) and not diff, replicated_alike=replicated_alike,
+        frame_without_host_reads=all(r["host_reads_checked"] for r in reps),
+        exempt=STAGING if r0["backend"] == "gloo" else "none",
+        launches=json.dumps(launches).replace(" ", ""),
+        metrics=json.dumps(r0["metrics"]).replace(" ", ""),
+        differing=",".join(diff[:8]) or "none", scaling="no (one card)")
+    check(expect is not None and len(expect) == len(got) and not diff,
+          f"{name}: the process mesh differs from the in-process run: {diff[:8]}")
+    check(replicated_alike, f"{name}: the ranks' replicated leaves differ")
+    check(all(r["host_reads_checked"] for r in reps), f"{name}: no frame ran under the sync check")
+    for k, per_rank in (expected or {}).items():
+        check(launches[k] == [per_rank] * r0["ranks"],
+              f"{name}: {k} launched {launches[k]} times by rank, expected {per_rank} each")
+    m = r0["metrics"]
+    for key in ("route_overflow_logic", "route_overflow_solver", "home_violators",
+                "nonfinite_count"):
+        check(m.get(key, 0) == 0, f"{name}: {key} {m.get(key)}")
+    return launches
+
+
+def dist_phase(dev, inproc):
+    """Phases 24 and 25: four gloo ranks on the card (every message staged
+    through pinned host memory), started once: the mesh's collectives
+    against ``SlabMesh`` (rung 0), every rung of the reference's dry run
+    with its asserts, then each in-process slab cell of phases 6, 8 and
+    12-14 over the process mesh, bit for bit, and the sharded step on
+    balls_10k against ``Engine.step``. Returns each cell's launches by rank
+    (phase 27)."""
+    from multithreadedgameengine_tpu_torch.dryrun import dryrun_multichip
+
+    card = card_name_and_limit()
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(DIST_RANKS, "gloo", "cuda", extra=dist_cells(inproc),
+                               deadline_s=DIST_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    by_name = {reps[0]["cell"]: reps for reps in reports}
+    # 24. the collectives, bit for bit against SlabMesh on every rank
+    col = by_name.pop("0_collectives")
+    log("dist_collectives", card=repr(card), ranks=DIST_RANKS, backend="gloo", device="cuda",
+        equal=json.dumps([r["equal"] for r in col]).replace(" ", ""),
+        staged_bytes=[r["bytes_staged"] for r in col])
+    check(all(all(r["equal"].values()) and r["bytes_staged"] > 0 for r in col),
+          "dist_collectives: the process mesh differs from SlabMesh")
+    # 25. the reference's rungs (their asserts ran on every rank)
+    for name in ("1_halo_boids", "1b_halo_mixed", "1c_halo_chunked", "1d_homed_boids",
+                 "1e_homed_mixed", "2_sharded_balls"):
+        reps = by_name.pop(name)
+        check(all(r.get("replicated") == reps[0].get("replicated") for r in reps),
+              f"dryrun {name}: the ranks' replicated leaves differ")
+    log("dist_dryrun", ranks=DIST_RANKS, rungs=7, seconds=wall)
+    sharded_expect, engine_sps = sharded_reference(dev, DIST_RANKS)
+    launches = {}
+    for key in ("halo_boids_102k_d4", "homed_boids_102k_d4", "halo_1m_d4", "homed_1m_d4",
+                "halo_mixed", "homed_mixed"):
+        name = f"dist_{key}"
+        reps, ref = by_name.pop(name), inproc[key]
+        frames = reps[0]["frames"]
+        check(frames == ref["frames"],
+              f"{name}: {frames} frames, the in-process run {ref['frames']}")
+        launches[name] = report_cell(reps, card, ref["digests"], ref["steps_per_s"],
+                                     {"K1": 0, "K2": 0, "K3": frames * reps[0]["substeps"]})
+    reps = by_name.pop("dist_sharded_balls_10k")
+    launches["dist_sharded_balls_10k"] = report_cell(
+        reps, card, sharded_expect, engine_sps,
+        {"K1": SHARDED_FRAMES * reps[0]["substeps"], "K2": 0, "K3": 0})
+    check(not by_name, f"dist: unreported cells {sorted(by_name)}")
+    return launches
+
+
+def nccl_phase(dev):
+    """Phase 26: the halo boids cell on NCCL at D = the card count (one
+    rank a card), against ``SlabMesh`` at the same D in this process."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch import dryrun
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh, run_ranks
+
+    count = torch.cuda.device_count()
+    cell = dict(name="nccl_halo_boids_102k", scene=boids_engine,
+                args=(HALO_BOIDS_N - 1, HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL),
+                kwargs=dict(solver_predicated="off"), frames=NCCL_FRAMES, warmup=1,
+                oversub=HALO_BOIDS_OVERSUB)
+    per_rank = run_ranks(dryrun.run_session, count, "nccl", "cuda",
+                         args=([(dryrun.halo_cell, cell)],), deadline_s=DIST_DEADLINE_S,
+                         threads=max(1, 8 // count))
+    reps = [r[0] for r in per_rank]
+    eng = boids_engine(dev, HALO_BOIDS_N - 1, HALO_BOIDS_WORLD, HALO_BOIDS_SPATIAL,
+                       solver_predicated="off")
+    eng._flush_pending()
+    step, place = make_halo_step(eng, make_mesh(count, dev), oversub=HALO_BOIDS_OVERSUB)
+    chunks, ins = place(eng.world), eng.input.snapshot(dev)
+    for _ in range(NCCL_FRAMES):
+        chunks, _m = step(chunks, ins)
+    print(f"[nccl] world_size={count} (torch.cuda.device_count()); "
+          + ("one card: D = 1, so NCCL moves nothing between ranks here"
+             if count == 1 else f"{count} cards, one rank each"), flush=True)
+    return report_cell(reps, card_name_and_limit(), chunk_digests(chunks), None,
+                       {"K1": 0, "K2": 0, "K3": NCCL_FRAMES * reps[0]["substeps"]})
+
+
 def main() -> int:
     import torch
 
@@ -2925,14 +3172,15 @@ def main() -> int:
     del snaps, a, b
 
     # 6. slice E1's main path: the halo step with K3
-    halo = halo_phase(dev)
+    inproc = {}  # the in-process slab runs the process mesh is held against
+    halo = halo_phase(dev, inproc)
     errs["K3"] = halo["errs"]
 
     # 7. slice C1's main path: BASELINE config 3, then the card against the CPU
     k1_boids, k1_boids_timing = boids_phase(dev, errs)
 
     # 8. the halo step's boids scene
-    k3_boids, k3_boids_timing = halo_boids_phase(dev, errs)
+    k3_boids, k3_boids_timing = halo_boids_phase(dev, errs, inproc)
 
     # 9. K4 at the probe's shapes
     k4 = k4_phase(dev)
@@ -2948,14 +3196,14 @@ def main() -> int:
     events_chunk(dev)
 
     # 12. slice E2: the mixed halo passes at scale, then against Engine.step
-    k3_pred, halo_run = halo_predators_phase(dev)
+    k3_pred, halo_run = halo_predators_phase(dev, inproc)
     slab_events_reference(dev)
 
     # 13. the homed step: the 1M rung, K3 on its short band, 100k bit-equality
-    k3_homed, homed_timing = homed_phase(dev, halo["steps_per_s"], errs)
+    k3_homed, homed_timing = homed_phase(dev, halo["steps_per_s"], errs, inproc)
 
     # 14. the mixed scene under the homed step, against phase 12's run
-    k3_homed_mixed = homed_mixed_phase(dev, halo_run)
+    k3_homed_mixed = homed_mixed_phase(dev, halo_run, inproc)
     del halo_run
 
     # 15-19. slice D1: BASELINE config 2 through run_plan, then the plan
@@ -2975,6 +3223,16 @@ def main() -> int:
     k1_render_pred, eng = render_server_phase(dev, "predators_15k", errs)
     screenshot_phase(eng)
     del eng
+
+    # 24-26. slice F: the process mesh (four gloo ranks on the card, then
+    # NCCL at the card count), the kernels built above before any rank starts
+    torch.cuda.empty_cache()
+    dist_launches = dist_phase(dev, inproc)
+    nccl_launches = nccl_phase(dev)
+    # 27. the ranks' launches, gathered to rank 0, into the kernel line
+    k3_dist = {f"launches_{name}": v["K3"] for name, v in dist_launches.items()
+               if name != "dist_sharded_balls_10k"}
+    k3_dist["launches_nccl_halo_boids_102k"] = nccl_launches["K3"]
 
     def entry(key, kernel, source, replaces, launches, ms, plain_ms, b, extra,
               library_ms=None):
@@ -2997,7 +3255,9 @@ def main() -> int:
                                                plan_100k.items()},
                "launches_plan_events": k1_plan_events, "launches_checkpoint": k1_checkpoint,
                "launches_render_balls_10k": k1_render_balls,
-               "launches_render_predators_15k": k1_render_pred}),
+               "launches_render_predators_15k": k1_render_pred,
+               "launches_dist_sharded_balls_10k":
+                   dist_launches["dist_sharded_balls_10k"]["K1"]}),
         entry("K2", k2, "multithreadedgameengine_tpu_torch/csrc/pair_pass_symmetric.cu",
               "multithreadedgameengine_tpu/ops/pallas_kernels.py:162", k2_big,
               k2_ms_1m, k2_plain_1m, bound_1m["K2"],
@@ -3012,7 +3272,7 @@ def main() -> int:
                "plain_ms_10k": halo["plain_ms_10k"], "bound_ms_10k": halo["bound_ms_10k"],
                "launches_halo_boids": k3_boids, **k3_boids_timing,
                "launches_halo_predators": k3_pred, "launches_homed_mixed": k3_homed_mixed,
-               **homed_timing}),
+               **homed_timing, **k3_dist}),
         entry("K4", ck.expand, "multithreadedgameengine_tpu_torch/csrc/expand.cu",
               "benchmarks/probe_expand_kernel.py:74", k4["launches"], k4["ms"],
               k4["plain_ms"], k4["bound"], {"shape": k4["shape"]},

@@ -375,6 +375,15 @@ EMIT_FIELDS: Dict[str, Tuple[torch.dtype, Any]] = {
 }
 
 
+def _on_device(value, device) -> torch.Tensor:
+    """A tick's output value as a tensor on ``device``. A Python number is
+    filled there, in the dtype ``torch.as_tensor`` would give it: copying it
+    from host memory would make every frame wait for the card."""
+    if isinstance(value, (bool, int, float)):
+        return torch.full((), value, device=device)
+    return torch.as_tensor(value, device=device)
+
+
 def _emit_block(out_emit: Dict[str, Any], klass: type, start: int, count: int,
                 world: World, live: torch.Tensor) -> Dict[str, Any]:
     """One class's ``"emit"`` output as a dense request block
@@ -389,7 +398,7 @@ def _emit_block(out_emit: Dict[str, Any], klass: type, start: int, count: int,
     device = world.device
     cap = max(1, int(getattr(klass, "emit_cap", 1)))
     n_req = out_emit.get("count", 1)
-    n_req = torch.clamp(torch.as_tensor(n_req, device=device).to(torch.int32), 0, cap)
+    n_req = torch.clamp(_on_device(n_req, device).to(torch.int32), 0, cap)
     n_req = torch.broadcast_to(n_req, (count,))
     slot = torch.arange(cap, dtype=torch.int32, device=device)
     valid = (slot[None, :] < n_req[:, None]) & live[:, None]
@@ -399,7 +408,7 @@ def _emit_block(out_emit: Dict[str, Any], klass: type, start: int, count: int,
         if v is None:
             v = (read_field(world, f"transform.{key}")[start:start + count]
                  if default is None else default)
-        v = torch.as_tensor(v, device=device).to(dtype)
+        v = _on_device(v, device).to(dtype)
         if v.ndim == 1:  # per entity
             v = v[:, None]
         fields[key] = torch.broadcast_to(v, (count, cap))
@@ -459,11 +468,11 @@ def run_logic_phase(
                 continue
             if path == "despawn":
                 dm = torch.zeros_like(world.transform.active)
-                dm[start:start + count] = torch.as_tensor(value, device=device) & active_slice
+                dm[start:start + count] = _on_device(value, device) & active_slice
                 despawn = dm if despawn is None else despawn | dm
                 continue
             arr = read_field(world, path)
-            value = torch.as_tensor(value, device=device).to(arr.dtype)
+            value = _on_device(value, device).to(arr.dtype)
             value = torch.broadcast_to(value, (count,))
             mask, vals = writes.get(path, (None, None))
             if mask is None:
@@ -526,11 +535,11 @@ def run_logic_phase_masked(
                 emissions.append(_emit_block(value, klass, 0, n, world, mask_cls))
                 continue
             if path == "despawn":
-                dm = torch.as_tensor(value, device=device) & mask_cls
+                dm = _on_device(value, device) & mask_cls
                 despawn = dm if despawn is None else despawn | dm
                 continue
             arr = read_field(world, path)
-            value = torch.broadcast_to(torch.as_tensor(value, device=device).to(arr.dtype), (n,))
+            value = torch.broadcast_to(_on_device(value, device).to(arr.dtype), (n,))
             mask, vals = writes.get(path, (None, None))
             if mask is None:
                 mask = torch.zeros(n, dtype=torch.bool, device=device)

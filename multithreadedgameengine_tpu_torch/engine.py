@@ -1591,6 +1591,18 @@ class Engine:
             cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
         )
 
+    def raw_step_fn(self):
+        """The one-device ``(world, inputs) -> (world, metrics)`` frame
+        (:meth:`_one_step`, with the plan built now if it is not yet), for
+        harnesses that place the world themselves, as the entity-sharded
+        step does (``parallel.sharded``; engine.py:2508-2514). It queues
+        nothing, flushes nothing and fires no hook: ``step``'s host work
+        around the frame is the caller's."""
+        self._require_init()
+        if self._plan is None:
+            self._plan = self._build_plan()
+        return self._one_step
+
     def step(self, n: int = 1, block: bool = False) -> Dict[str, torch.Tensor]:
         """Advance ``n`` frames with the inputs of this call (the reference
         freezes the input snapshot for a chunk of frames the same way).

@@ -181,8 +181,9 @@ def apply_emission(
         if vals is None:
             if src not in _EMIT_DEFAULTS:
                 return cur
-            return torch.where(take, torch.as_tensor(_EMIT_DEFAULTS[src], dtype=cur.dtype,
-                                                     device=cur.device), cur)
+            # filled on the card: a host copy would make the frame wait for it
+            return torch.where(take, torch.full((), _EMIT_DEFAULTS[src], dtype=cur.dtype,
+                                                device=cur.device), cur)
         return torch.where(take, vals.to(cur.dtype)[sel], cur)
 
     p = p.replace(active=p.active | take,

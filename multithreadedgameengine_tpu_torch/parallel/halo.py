@@ -1,4 +1,4 @@
-"""The spatial-domain halo step, on the in-process slab mesh.
+"""The spatial-domain halo step, on a slab mesh (``parallel.mesh``).
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/parallel/halo.py``: the
 world is cut into D horizontal slabs; every frame
@@ -24,9 +24,9 @@ world is cut into D horizontal slabs; every frame
   the solver of ``solver="pallas"`` (what "auto" resolves to).
 
 Ported here: ``entity_leaf_specs`` (built-ins, then the sorted user
-components), ``pack_world_rows``/``unpack_world_rows`` (exact transport:
-float32 lanes travel as their int32 bits, every lane is int64, so the
-port's int64 colours never wrap), ``_rank_within_dest``,
+components), ``pack_world_rows``/``unpack_world_rows`` (exact transport through
+:func:`to_lanes`: float32 lanes travel as their int32 bits, every lane is
+int64, so the port's int64 colours never wrap), ``_rank_within_dest``,
 ``route_out``/``route_back`` (split into the per-slab ``route_send`` and
 ``route_take`` around the mesh's all_to_all), ``route_capacity``,
 ``_merge_emissions``, ``_slab_shadow_sprites`` (with its light selection
@@ -44,13 +44,17 @@ the diffed event tables are sorted, and equal. The shadow sprites read the
 casters' frame-start state (the payload channels), as in the reference:
 on a moving scene they lag ``Engine.step``'s by a frame.
 
-Differences of form, on one card: the particle pool, the decal canvas and
-its tiles, the pair and event tables and the shadow sprites are the SAME
-tensors on every chunk world, and each replicated pass runs once a frame,
-where the reference computes it once per device. A ``torch.distributed``
-mesh (ROADMAP item 21) would run the same functions once per process. No
-pass changes a shared tensor in place. ``unplace_fn`` takes them from chunk
-0.
+The step runs on any mesh of ``parallel.mesh``'s contract: on the
+in-process ``SlabMesh`` a process holds every slab, on
+``parallel.dist.ProcessMesh`` one. Each per-slab function takes its slab's
+index from ``mesh.slabs``, and reads other slabs only through the mesh's
+collectives. On one process the particle pool, the decal canvas and its
+tiles, the pair and event tables and the shadow sprites are the SAME
+tensors on every chunk world, and each replicated pass runs once a frame;
+on a process mesh each process holds its own copy and runs the pass once,
+on the same gathered inputs, as the reference computes it once per device.
+No pass changes a shared tensor in place. ``unplace_fn`` takes them from
+chunk 0 (on a process mesh, rank 0's).
 
 Two deliberate differences from the reference's results: its K3 never
 reads the grid's border rows (pallas_kernels.py:814-825), so under its halo
@@ -141,16 +145,37 @@ def _get_comp(world: World, cname: str):
     return getattr(world, cname)
 
 
+def to_lanes(a: torch.Tensor) -> torch.Tensor:
+    """``a`` ``[n, ...]`` as exact int64 lanes ``[n, k]``: float32 as its
+    int32 bit pattern, float64 as its int64 bits, bool and integers
+    widened (an int64 tint as it is). The one row format of the slab
+    steps' routing and the entity-sharded step's gather."""
+    a = a.reshape(a.shape[0], -1)
+    if a.dtype == torch.float32:
+        return a.view(torch.int32).to(torch.int64)
+    if a.dtype == torch.float64:
+        return a.view(torch.int64)
+    return a.to(torch.int64)
+
+
+def from_lanes(lanes: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    """The exact inverse of :func:`to_lanes`: ``lanes`` ``[n, k]`` as a
+    ``dtype`` tensor of ``shape`` (``n`` rows)."""
+    if dtype == torch.float32:
+        a = lanes.to(torch.int32).view(torch.float32)
+    elif dtype == torch.float64:
+        a = lanes.contiguous().view(torch.float64)
+    elif dtype == torch.bool:
+        a = lanes != 0
+    else:
+        a = lanes.to(dtype)
+    return a.reshape(shape)
+
+
 def pack_world_rows(world: World, specs) -> torch.Tensor:
-    """[n, L] int64 rows, one lane per field: float32 as its int32 bit
-    pattern, bool and integers widened (an int64 tint as it is)."""
-    cols = []
-    for cname, fname, dt in specs:
-        arr = getattr(_get_comp(world, cname), fname)
-        if dt == torch.float32:
-            arr = arr.view(torch.int32)
-        cols.append(arr.to(torch.int64))
-    return torch.stack(cols, dim=1)
+    """[n, L] int64 rows, one lane per field (:func:`to_lanes`)."""
+    return torch.cat([to_lanes(getattr(_get_comp(world, cname), fname))
+                      for cname, fname, _dt in specs], dim=1)
 
 
 def unpack_world_rows(rows: torch.Tensor, world: World, specs) -> World:
@@ -158,14 +183,7 @@ def unpack_world_rows(rows: torch.Tensor, world: World, specs) -> World:
     inverse of :func:`pack_world_rows`); ``step_count`` from ``world``."""
     fields = {}
     for k, (cname, fname, dt) in enumerate(specs):
-        col = rows[:, k]
-        if dt == torch.float32:
-            arr = col.to(torch.int32).view(torch.float32)
-        elif dt == torch.bool:
-            arr = col != 0
-        else:
-            arr = col.to(dt)
-        fields.setdefault(cname, {})[fname] = arr
+        fields.setdefault(cname, {})[fname] = from_lanes(rows[:, k:k + 1], dt, rows.shape[:1])
     built, custom = {}, dict(world.custom)
     for cname, fs in fields.items():
         comp = _get_comp(world, cname).replace(**fs)
@@ -266,10 +284,11 @@ def replicated_leaves(world: World, device) -> Dict[str, Any]:
 
 
 def place_world(world: World, mesh: SlabMesh) -> List[World]:
-    """The world as D chunk worlds of ``N/D`` consecutive entities on the
-    mesh's device (chunk s holds entities ``s*N/D .. (s+1)*N/D - 1``), each
-    holding the same replicated leaves. Solver caches are left behind: the
-    halo step bins every frame."""
+    """The world's chunks of the mesh's local slabs, ``N/D`` consecutive
+    entities each, on the mesh's device (chunk s holds entities ``s*N/D ..
+    (s+1)*N/D - 1``), each holding the same replicated leaves. Every process
+    of a process mesh is handed the whole world and keeps its own slab.
+    Solver caches are left behind: the halo step bins every frame."""
     n = world.n_entities
     if n % mesh.n_slabs != 0:
         raise ValueError(f"entity count {n} is not divisible by the mesh size {mesh.n_slabs}")
@@ -280,14 +299,39 @@ def place_world(world: World, mesh: SlabMesh) -> List[World]:
     return [
         base.map_tensors(lambda a, s=s: a[s * n_loc:(s + 1) * n_loc].to(mesh.device, copy=True))
         .replace(**rep)
-        for s in range(mesh.n_slabs)
+        for s in mesh.slabs
     ]
 
 
-def unplace_fn(chunks: Sequence[World]) -> World:
+def gather_chunks(mesh: SlabMesh, chunks: Sequence[World]) -> Optional[List[World]]:
+    """Every slab's chunk world on the process that holds slab 0 (None on
+    the others): the local chunks as they are when this process holds every
+    slab, else each chunk's entity rows packed exactly, gathered through
+    ``mesh.gather`` and unpacked over rank 0's chunk, whose replicated leaves
+    and host ints they keep. Every slab's chunk has the same row count."""
+    if len(mesh.slabs) == mesh.n_slabs:
+        return list(chunks)
+    specs = entity_leaf_specs(chunks[0])
+    rows = mesh.gather([pack_world_rows(c, specs) for c in chunks])
+    if rows is None:
+        return None
+    return [unpack_world_rows(r, chunks[0], specs) for r in rows.unbind(0)]
+
+
+def unplace_fn(chunks: Sequence[World], mesh: SlabMesh) -> Optional[World]:
     """The inverse of ``place_fn``: one world of the chunks' entities, in
     order, with chunk 0's replicated leaves (for ``Engine.restore`` and
-    comparisons)."""
+    comparisons). ``chunks`` are this process's, one for each slab of
+    ``mesh.slabs``, and every process calls it: the chunks gather to the
+    holder of slab 0 (:func:`gather_chunks`), which returns the world, and
+    the other processes return None. Raises ``ValueError`` when the chunks
+    are not one for each of the mesh's local slabs."""
+    if len(chunks) != len(mesh.slabs):
+        raise ValueError(f"{len(chunks)} chunks for a mesh that holds slabs {mesh.slabs} "
+                         "here: unplace the chunks of the mesh that placed them")
+    chunks = gather_chunks(mesh, chunks)
+    if chunks is None:
+        return None
     first = chunks[0]
 
     def joined(get):
@@ -463,11 +507,12 @@ class SlabPasses:
     lights: Optional[SlabLights] = None
 
 
-def _gather_home(homes: Sequence[World]):
+def _gather_home(mesh: SlabMesh, homes: Sequence[World]):
     """``ctx.gather``'s resolver under the halo step: the path's field of the
-    home chunks at frame start, concatenated into global-id order (the
-    reference's all_gather, halo.py:669-672)."""
-    return lambda path: torch.cat([read_field(c, path) for c in homes])
+    home chunks at frame start, gathered over the mesh into global-id order
+    (the reference's all_gather, halo.py:669-672). Every process resolves
+    the same paths, since every class's tick runs on every slab."""
+    return lambda path: mesh.all_gather([read_field(c, path) for c in homes]).flatten(0, 1)
 
 
 def slab_logic(chunk: World, inputs: InputState, plan: SlabPlan, row_ids: torch.Tensor,
@@ -666,15 +711,15 @@ def phase_a(mesh: SlabMesh, chunks: List[World], inputs: InputState, plan: HaloP
     Returns (chunks, n_binned, route overflow, each slab's passes), the
     counts summed over slabs. Slabs build their candidate rows one at a
     time, so one slab's ``[m, S, F]`` payload is alive at once."""
-    gather_fn = _gather_home(chunks)
-    sent = [slab_logic_rows(c, plan, d) for d, c in enumerate(chunks)]
+    gather_fn = _gather_home(mesh, chunks)
+    sent = [slab_logic_rows(c, plan, d) for d, c in zip(mesh.slabs, chunks)]
     recv, sent_slot, ovf = route_out(mesh, *zip(*sent), plan.route_cap)
     residents = [slab_residents(r, c, plan) for r, c in zip(recv, chunks)]
     bins = [slab_neighbor_table(local, gid, ok, plan, d)
-            for d, (local, gid, ok) in enumerate(residents)]
+            for d, (local, gid, ok) in zip(mesh.slabs, residents)]
     _exchange_table_rows(mesh, [b.table for b in bins], plan)
     out, passes = [], []
-    for d, ((local, gid, ok), b) in enumerate(zip(residents, bins)):
+    for d, (local, gid, ok), b in zip(mesh.slabs, residents, bins):
         local, p = slab_neighbor_logic(local, gid, ok, b, inputs, plan, d, gather_fn)
         out.append(pack_world_rows(local, plan.leaf_specs))
         passes.append(p)
@@ -789,7 +834,8 @@ def merge_pair_tables(mesh: SlabMesh, slab_pairs, max_pairs: int):
 
 def replicated_passes(mesh: SlabMesh, plan: SlabPlan, world: World, inputs: InputState,
                       passes: Sequence[SlabPasses]):
-    """The frame's replicated passes, once (halo.py:867-980): the merged
+    """The frame's replicated passes, once a process (halo.py:867-980),
+    each slab's share gathered over the mesh: the merged
     pair table, its Enter/Stay/Exit difference against the last frame's and
     the swap; the particle pool moved, the landed particles stamped, the
     tick emissions merged and claimed, the pool's visibility; the shadow
@@ -984,9 +1030,10 @@ def make_halo_step(engine, mesh: SlabMesh, oversub: float = 4.0, chunk_steps: in
     """Build the spatial-domain step for an initialized engine.
 
     Returns (step_fn, place_fn): ``place_fn(world)`` cuts the world into the
-    mesh's D chunk worlds (:func:`place_world`; :func:`unplace_fn` is the
-    inverse); ``step_fn(chunks, inputs) -> (chunks, metrics)`` runs one
-    frame, with the reference's nine metrics as 0-dim int32 tensors.
+    chunk worlds of the mesh's local slabs (:func:`place_world`;
+    :func:`unplace_fn` is the inverse); ``step_fn(chunks, inputs) ->
+    (chunks, metrics)`` runs one frame, with the reference's nine metrics as
+    0-dim int32 tensors, summed over every slab of the mesh.
     ``chunk_steps=K > 1``: ``step_fn(chunks, inputs_timeline)`` runs K
     frames, one per ``InputState`` of the sequence, with every metric
     stacked ``[K]``. ``step_fn.plan`` is the :class:`HaloPlan`.
@@ -1000,6 +1047,7 @@ def make_halo_step(engine, mesh: SlabMesh, oversub: float = 4.0, chunk_steps: in
     decals and shadows run as :func:`replicated_passes`; screen events
     raise ``NotImplementedError``."""
     n_dev = mesh.n_slabs
+    n_held = len(mesh.slabs)
     engine._require_init()
     n = engine.world.n_entities
     if n % n_dev != 0:
@@ -1018,31 +1066,33 @@ def make_halo_step(engine, mesh: SlabMesh, oversub: float = 4.0, chunk_steps: in
         empty_nbr=empty_neighbor_lists(n // n_dev, mesh.device),
     )
     cfg = plan.cfg
-    lens = [plan.slab_geom.rows] * n_dev
+    lens = [plan.slab_geom.rows] * n_held
 
     def zero(v):
         return torch.full((), v, dtype=torch.int32, device=mesh.device)
 
     def full_step(chunks: Sequence[World], inputs: InputState):
-        if len(chunks) != n_dev:
-            raise ValueError(f"expected {n_dev} chunk worlds, got {len(chunks)}")
+        if len(chunks) != n_held:
+            raise ValueError(f"expected {n_held} chunk worlds, got {len(chunks)}")
         chunks = list(chunks)
-        chunks[0] = apply_inputs(chunks[0], inputs)  # entity 0 is the mouse
+        if 0 in mesh.slabs:  # entity 0, the mouse, lives on slab 0
+            k = mesh.slabs.index(0)
+            chunks[k] = apply_inputs(chunks[k], inputs)
         if plan.need_neighbors:
             chunks, n_binned, ovf_a, passes = phase_a(mesh, chunks, inputs, plan)
         else:
-            gather_fn = _gather_home(chunks)
+            gather_fn = _gather_home(mesh, chunks)
             done = [slab_logic(c, inputs, plan, plan.gid(d, c.device), gather_fn)
-                    for d, c in enumerate(chunks)]
+                    for d, c in zip(mesh.slabs, chunks)]
             chunks, passes = [c for c, _ in done], [p for _, p in done]
             n_binned, ovf_a = zero(-1), zero(0)
         rep, pair_count, pairs_dropped, p_active = replicated_passes(
             mesh, plan, chunks[0], inputs, passes)
         chunks = [slab_move(c, plan) for c in chunks]
 
-        sent = [slab_solver_rows(c, plan, d) for d, c in enumerate(chunks)]
+        sent = [slab_solver_rows(c, plan, d) for d, c in zip(mesh.slabs, chunks)]
         recv, sent_slot, ovf = route_out(mesh, *zip(*sent), plan.route_cap)
-        slabs = [slab_grid(r, plan, d) for d, r in enumerate(recv)]
+        slabs = [slab_grid(r, plan, d) for d, r in zip(mesh.slabs, recv)]
         states = run_slab_substeps(mesh, [s[0] for s in slabs], lens, cfg,
                                    chunks[0].step_count & 0xFFFFFFFF)
         back = route_back(mesh, [slab_solver_out(st, s[1], s[2])

@@ -1,4 +1,4 @@
-"""The position-homed spatial-domain step, on the in-process slab mesh.
+"""The position-homed spatial-domain step, on a slab mesh (``parallel.mesh``).
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/parallel/homed.py``.
 Where the halo step (``parallel.halo``) keeps each entity at a fixed slot
@@ -47,10 +47,13 @@ chunks bin their cells in entity order, and phase B's merge restores the
 global order of the solver rows. K3 reads the grid's border rows (ROADMAP
 §3), so ``solver="pallas"`` is held to bit-equality here too, where the
 reference's tests check only finiteness for its kernel. Differences of
-form are those of ``parallel.halo``: one card, the replicated leaves shared
-by every chunk, each replicated pass once a frame; screen events are
-refused. A tick sees ``ctx.i`` as the local row index, as in the
-reference.
+form are those of ``parallel.halo``: the replicated leaves are shared by
+every chunk of a process, each replicated pass runs once a process; screen
+events are refused. A tick sees ``ctx.i`` as the local row index, as in the
+reference. Like the halo step it runs on any mesh of ``parallel.mesh``'s
+contract: each per-slab function takes its slab's index from
+``mesh.slabs``; placement, the control plane and ``unplace`` run on every
+process with the same arguments, each process applying its own slabs' part.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ from .halo import (
     _rank_within_dest,
     apply_solved,
     bin_solver_rows,
+    gather_chunks,
     pack_world_rows,
     replicated_leaves,
     replicated_passes,
@@ -152,17 +156,37 @@ def _apply_inputs_by_gid(chunk: World, gid: torch.Tensor, inputs: InputState) ->
     )
 
 
-def _gather_homed(homes: Sequence[World], gids: Sequence[torch.Tensor], n: int):
+def later_rows(gd: torch.Tensor, n: int) -> torch.Tensor:
+    """For each of ``n`` entities, the position in ``gd`` (gids in slab
+    then row order, -1 free) of the LAST row that holds it, -1 for none.
+
+    A gid can be held by two rows: a live insert (``HomedControl``) leaves
+    the inactive row parked on slab 0 in place, as the reference's does.
+    The later row wins, as in the reference's numpy assignment: the
+    inserted or arrived row, which the stable merge puts after the parked
+    one. (A scatter of duplicate indices, such as ``index_copy_``, lets
+    whichever CPU thread writes last win.)"""
+    pos = torch.arange(gd.numel(), dtype=torch.int64, device=gd.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=gd.device)
+    last.scatter_reduce_(0, torch.where(gd >= 0, gd, n), pos, "amax")  # free rows: a spare
+    return last[:n]
+
+
+def _gather_homed(mesh: SlabMesh, homes: Sequence[World], gids: Sequence[torch.Tensor], n: int):
     """``ctx.gather``'s resolver under the homed step (homed.py:400-409):
-    the path's field of every slab at frame start, scattered by gid into
-    entity order (0 for an entity held by no slab)."""
+    the path's field of every slab at frame start, gathered over the mesh
+    and read by gid into entity order, a gid held twice from its later row
+    (:func:`later_rows`), 0 for an entity held by no slab. The gids do not
+    change within the frame: the first path gathers them and finds the
+    later rows, every path reuses them."""
+    rows: List[torch.Tensor] = []
 
     def gather(path):
-        vals = torch.cat([read_field(c, path) for c in homes])
-        g = torch.cat(list(gids)).to(torch.int64)
-        out = vals.new_zeros((n + 1,))
-        out.index_copy_(0, torch.where(g >= 0, g, n), vals)  # free slots -> a spare row
-        return out[:n]
+        vals = mesh.all_gather([read_field(c, path) for c in homes]).flatten(0, 1)
+        if not rows:
+            rows.append(later_rows(mesh.all_gather(list(gids)).flatten(0, 1).to(torch.int64), n))
+        last = rows[0]
+        return torch.where(last >= 0, vals[torch.clamp(last, min=0)], vals.new_zeros(()))
 
     return gather
 
@@ -178,33 +202,33 @@ def phase_a(mesh: SlabMesh, chunks: List[World], gids: List[torch.Tensor],
     then lists, ticks, pairs and lights slab by slab. Rows out of their band
     (violators) are left out of the table and get no list. Returns (chunks,
     n_binned summed, violators per slab, passes per slab)."""
-    gather_fn = _gather_homed(chunks, gids, plan.n)
+    gather_fn = _gather_homed(mesh, chunks, gids, plan.n)
     valid, violators = [], []
-    for d, (c, g) in enumerate(zip(chunks, gids)):
+    for d, c, g in zip(mesh.slabs, chunks, gids):
         lt = c.transform
         fin = torch.isfinite(lt.x) & torch.isfinite(lt.y)
         in_band = band_of_y(lt.y, plan) == d
         valid.append(lt.active & fin & (g >= 0) & in_band)
         violators.append(torch.sum(lt.active & (g >= 0) & fin & ~in_band, dtype=torch.int32))
     bins = [slab_neighbor_table(c, g, ok, plan, d)
-            for d, (c, g, ok) in enumerate(zip(chunks, gids, valid))]
+            for d, c, g, ok in zip(mesh.slabs, chunks, gids, valid)]
     _exchange_table_rows(mesh, [b.table for b in bins], plan)
     out, passes = [], []
-    for d, (c, g, ok, b) in enumerate(zip(chunks, gids, valid, bins)):
+    for d, c, g, ok, b in zip(mesh.slabs, chunks, gids, valid, bins):
         local, p = slab_neighbor_logic(c, g, ok, b, inputs, plan, d, gather_fn)
         out.append(local)
         passes.append(p)
     return out, mesh.psum([b.n_binned for b in bins]), violators, passes
 
 
-def phase_a_local(chunks: List[World], gids: List[torch.Tensor], inputs: InputState,
-                  plan: HomedPlan):
+def phase_a_local(mesh: SlabMesh, chunks: List[World], gids: List[torch.Tensor],
+                  inputs: InputState, plan: HomedPlan):
     """Phase A without neighbours (homed.py:454-486): the ticks on every
     slab's rows with empty lists, then the violators by the post-tick
     position. Returns (chunks, violators per slab, passes per slab)."""
-    gather_fn = _gather_homed(chunks, gids, plan.n)
+    gather_fn = _gather_homed(mesh, chunks, gids, plan.n)
     out, violators, passes = [], [], []
-    for d, (c, g) in enumerate(zip(chunks, gids)):
+    for d, c, g in zip(mesh.slabs, chunks, gids):
         local, p = slab_logic(c, inputs, plan, torch.clamp(g, min=0), gather_fn)
         lt = local.transform
         in_band = band_of_y(lt.y, plan) == d
@@ -351,15 +375,16 @@ def phase_b(mesh: SlabMesh, chunks: List[World], gids: List[torch.Tensor], plan:
     """The homed solver phase over all slabs (homed.py:492-700). Returns
     (chunks, solved per slab, degraded per slab)."""
     cap_pb = plan.cap_pb
-    staged = [slab_solver_stage(c, g, plan, d) for d, (c, g) in enumerate(zip(chunks, gids))]
+    staged = [slab_solver_stage(c, g, plan, d) for d, c, g in zip(mesh.slabs, chunks, gids)]
     # my up block goes to d-1; I receive d+1's up block (and d-1's down)
     from_above = mesh.shift_up([s.buf_up for s in staged])
     from_below = mesh.shift_down([s.buf_dn for s in staged])
     merged = [slab_phase_b_merge(s, g, a, b, plan.n_cap)
               for s, g, a, b in zip(staged, gids, from_above, from_below)]
-    grids = [bin_solver_rows(mg.res, plan, row0) for mg, row0 in zip(merged, plan.band_start)]
-    states = run_slab_substeps(mesh, [g[0] for g in grids], plan.band_len, plan.cfg,
-                               chunks[0].step_count & 0xFFFFFFFF)
+    grids = [bin_solver_rows(mg.res, plan, plan.band_start[d])
+             for d, mg in zip(mesh.slabs, merged)]
+    states = run_slab_substeps(mesh, [g[0] for g in grids], [plan.band_len[d] for d in mesh.slabs],
+                               plan.cfg, chunks[0].step_count & 0xFFFFFFFF)
     outs = [slab_phase_b_out(st, flat, in_grid, mg, cap_pb)
             for st, (_g, flat, in_grid), mg in zip(states, grids, merged)]
     # the blocks back to their senders
@@ -446,11 +471,12 @@ def migrate(mesh: SlabMesh, chunks: List[World], gids: List[torch.Tensor], plan:
     """Movers-only migration on final positions (homed.py:702-770, :921-924)
     over all slabs. Returns (chunks, gids, sent per slab, ungranted per
     slab)."""
-    dem = [slab_demand(c, g, plan, d) for d, (c, g) in enumerate(zip(chunks, gids))]
+    dem = [slab_demand(c, g, plan, d) for d, c, g in zip(mesh.slabs, chunks, gids)]
+    # every process computes the whole grant from the gathered demand
     grant = grant_matrix(mesh.all_gather([x[2] for x in dem]),
                          mesh.all_gather([x[3] for x in dem]), plan.n_cap, plan.m_mig)
     sends = [slab_migration_rows(c, g, x[0], x[1], grant[d], plan)
-             for d, (c, g, x) in enumerate(zip(chunks, gids, dem))]
+             for d, c, g, x in zip(mesh.slabs, chunks, gids, dem)]
     recv = mesh.all_to_all([s[0] for s in sends])
     width = sends[0][3].shape[1]
     done = [finish_migration(c, g, r.reshape(-1, width), s[1], s[3], plan)
@@ -493,7 +519,7 @@ class HomedControl:
         valid = new_gids >= 0
         dest = torch.where(valid & torch.isfinite(y), band_of_y(y, plan), -1)
         out_c, out_g, denied = [], [], []
-        for d, (c, g) in enumerate(zip(chunks, gids)):
+        for d, c, g in zip(self.mesh.slabs, chunks, gids):
             mine = dest == d
             occ = torch.sum(g >= 0, dtype=torch.int64)
             rank = torch.cumsum(mine, dim=0, dtype=torch.int64) - 1
@@ -531,11 +557,14 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
     - ``place_fn(world) -> (chunks, gids)``: every entity to the slab of its
       position's band (inactive ones parked on slab 0), each chunk
       gid-sorted in ``n_cap`` rows with the replicated leaves shared;
-      ``gids`` one int32 ``[n_cap]`` tensor per slab, -1 for a free row;
+      ``gids`` one int32 ``[n_cap]`` tensor per slab, -1 for a free row; the
+      mesh's local slabs only (every process is handed the whole world);
     - ``step_fn(chunks, gids, inputs) -> (chunks, gids, metrics)``: one
       frame, with the reference's ten metrics as 0-dim int32 tensors;
       ``step_fn.plan`` is the :class:`HomedPlan`;
-    - ``unplace_fn(chunks, gids) -> world``: the entity-ordered world;
+    - ``unplace_fn(chunks, gids) -> world``: the entity-ordered world (on a
+      process mesh every rank calls it; rank 0 returns the world, the others
+      None);
     - ``ctl``: :class:`HomedControl` (``pack_rows``, ``insert``,
       ``remove``).
 
@@ -549,6 +578,7 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
     substep, as the halo step."""
     common = slab_plan_fields(engine, mesh, "homed")
     n_dev = mesh.n_slabs
+    n_held = len(mesh.slabs)
     world0 = engine.world
     n = world0.n_entities
     cfg, sp, g = common["cfg"], common["cfg"].spatial, common["solver_geom"]
@@ -579,14 +609,14 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
     cfg = plan.cfg
 
     def full_step(chunks: Sequence[World], gids: Sequence[torch.Tensor], inputs: InputState):
-        if len(chunks) != n_dev or len(gids) != n_dev:
-            raise ValueError(f"expected {n_dev} chunk worlds and gid tensors")
+        if len(chunks) != n_held or len(gids) != n_held:
+            raise ValueError(f"expected {n_held} chunk worlds and gid tensors")
         gids = list(gids)
         chunks = [_apply_inputs_by_gid(c, gd, inputs) for c, gd in zip(chunks, gids)]
         if plan.need_neighbors:
             chunks, n_binned, violators, passes = phase_a(mesh, chunks, gids, inputs, plan)
         else:
-            chunks, violators, passes = phase_a_local(chunks, gids, inputs, plan)
+            chunks, violators, passes = phase_a_local(mesh, chunks, gids, inputs, plan)
             n_binned = torch.full((), -1, dtype=torch.int32, device=mesh.device)
         rep, pair_count, pairs_dropped, p_active = replicated_passes(
             mesh, plan, chunks[0], inputs, passes)
@@ -627,7 +657,7 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
         rows = pack_world_rows(world, specs).to(mesh.device)
         rep = replicated_leaves(world, mesh.device)
         chunks, gids = [], []
-        for d in range(n_dev):
+        for d in mesh.slabs:
             idx = torch.nonzero(dest == d).flatten()
             if idx.numel() > n_cap:
                 raise ValueError(f"placement overflow: band {d} holds {idx.numel()} entities "
@@ -645,22 +675,15 @@ def make_homed_step(engine, mesh: SlabMesh, headroom: float = 2.0, mig_oversub: 
 
     def unplace_fn(chunks: Sequence[World], gids: Sequence[torch.Tensor]) -> World:
         """The entity-ordered world (homed.py:1032-1041), with chunk 0's
-        replicated leaves; an entity held by no slab reads as zeros.
-
-        A gid can be held by two rows: a live insert (``HomedControl``)
-        leaves the inactive row parked on slab 0 in place, as the
-        reference's does. The later row in slab-then-row order wins, as in
-        the reference's numpy assignment: the inserted or arrived row,
-        which the stable merge puts after the parked one. (An
-        ``index_copy_`` of duplicate indices lets whichever CPU thread
-        writes last win.)"""
+        replicated leaves; an entity held by no slab reads as zeros, a gid
+        held twice from its later row (:func:`later_rows`). On a process
+        mesh the chunks and gids gather to rank 0 first, in slab order."""
+        chunks = gather_chunks(mesh, chunks)
+        gd = mesh.gather(list(gids))
+        if chunks is None:
+            return None
         rows = torch.cat([pack_world_rows(c, specs) for c in chunks])
-        gd = torch.cat(list(gids)).to(torch.int64)
-        pos = torch.arange(gd.numel(), dtype=torch.int64, device=gd.device)
-        last = torch.full((n + 1,), -1, dtype=torch.int64, device=gd.device)
-        # free rows go to a spare entry
-        last.scatter_reduce_(0, torch.where(gd >= 0, gd, n), pos, "amax")
-        last = last[:n]
+        last = later_rows(gd.flatten(0, 1).to(torch.int64), n)
         out = torch.where((last >= 0)[:, None], rows[torch.clamp(last, min=0)], 0)
         return unpack_world_rows(out, chunks[0], specs)
 

@@ -17,10 +17,26 @@ an explicit copy between slab buffers:
 - ``jax.lax.all_gather(x, axis)``: :meth:`SlabMesh.all_gather`, the slabs'
   parts stacked in slab order.
 
-It is deterministic, cannot hang, and runs on one card. A
-``torch.distributed`` (NCCL) mesh for a host with several cards, one slab
-per process, would offer the same methods over its collectives and
-call the same per-slab functions of ``parallel.halo`` (ROADMAP).
+It is deterministic, cannot hang, and runs on one card. Its counterpart
+with one slab per process, ``parallel.dist.ProcessMesh``, offers the same
+methods over ``torch.distributed`` collectives, and the slab steps call the
+same per-slab functions on either.
+
+The contract every mesh keeps:
+
+- ``mesh.slabs`` is the tuple of slab indices this process holds, in
+  order: ``tuple(range(n_slabs))`` here, ``(rank,)`` on a process mesh.
+  The slab steps read a slab's index from it, never from a position in a
+  list;
+- ``all_to_all``, ``ppermute``, ``shift_down`` and ``shift_up`` take one
+  entry per local slab, in the order of ``slabs``, and return one entry per
+  local slab;
+- ``all_gather`` takes one entry per local slab and returns the full ``[D,
+  ...]`` stack in slab order on every process; ``psum`` returns the full
+  sum, taken left to right in slab order, on every process;
+- ``gather`` takes one entry per local slab and returns the full ``[D,
+  ...]`` stack on the process that holds slab 0, None on the others (what
+  ``unplace`` reads).
 """
 
 from __future__ import annotations
@@ -41,11 +57,16 @@ def _edge_perms(n_slabs: int):
 
 @dataclass(frozen=True)
 class SlabMesh:
-    """``n_slabs`` slabs on ``device``. Every method takes and returns one
-    entry per slab, in slab order."""
+    """``n_slabs`` slabs on ``device``, all held by this process: every
+    method takes and returns one entry per slab, in slab order."""
 
     n_slabs: int
     device: torch.device
+
+    @property
+    def slabs(self) -> Tuple[int, ...]:
+        """The slabs this process holds: all of them."""
+        return tuple(range(self.n_slabs))
 
     def _check(self, parts: Sequence[torch.Tensor]) -> None:
         if len(parts) != self.n_slabs:
@@ -87,12 +108,22 @@ class SlabMesh:
         return torch.stack(list(parts))
 
     def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The sum over slabs, in the values' own dtype."""
+        """The sum over slabs, in the values' own dtype, left to right."""
         self._check(values)
-        total = values[0]
-        for v in values[1:]:
-            total = total + v
-        return total
+        return sum_in_order(values)
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The slabs' parts stacked in slab order: this process holds slab 0."""
+        return self.all_gather(parts)
+
+
+def sum_in_order(values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``values[0] + values[1] + ...``, left to right: the order every mesh's
+    ``psum`` takes, so float sums agree bit for bit between meshes."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total
 
 
 def make_mesh(n_slabs: int, device="cuda") -> SlabMesh:

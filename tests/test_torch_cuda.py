@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from multithreadedgameengine_tpu_torch.dryrun import rung_collectives
 from multithreadedgameengine_tpu_torch.ops import cuda_kernels
 from multithreadedgameengine_tpu_torch.ops.cuda_kernels import (
     pair_pass_resident,
@@ -339,11 +340,12 @@ def test_halo_step_on_card_matches_cpu(cuda):
         eng = make_balls_engine(n_balls=255, seed=99, device=device, world_width=1600.0,
                                 world_height=1000.0)
         eng._flush_pending()
-        step, place = make_halo_step(eng, make_mesh(4, device), oversub=4.0)
+        mesh = make_mesh(4, device)
+        step, place = make_halo_step(eng, mesh, oversub=4.0)
         chunks = place(eng.world)
         for _ in range(5):
             chunks, _m = step(chunks, eng.input.snapshot(device))
-        out.append(unplace_fn(chunks).map_tensors(lambda a: a.cpu()))
+        out.append(unplace_fn(chunks, mesh).map_tensors(lambda a: a.cpu()))
     a, b = out
     assert torch.equal(a.rigid_body.collision_count, b.rigid_body.collision_count)
     tol = 2 * float(np.spacing(np.float32(1600.0)))
@@ -527,12 +529,13 @@ def test_halo_boids_on_card_bit_equal_with_engine_step(cuda):
     from multithreadedgameengine_tpu_torch.parallel.halo import _get_comp, entity_leaf_specs
 
     eh, es = boids_scene(cuda, 4096, (2400.0, 1200.0)), boids_scene(cuda, 4096, (2400.0, 1200.0))
-    step, place = make_halo_step(eh, make_mesh(4, cuda), oversub=1.5)
+    mesh = make_mesh(4, cuda)
+    step, place = make_halo_step(eh, mesh, oversub=1.5)
     chunks = place(eh.world)
     for _ in range(5):
         chunks, m = step(chunks, eh.input.snapshot(cuda))
     es.step(5)
-    a, b = unplace_fn(chunks), es.world
+    a, b = unplace_fn(chunks, mesh), es.world
     for cname, fname, _dt in entity_leaf_specs(a):
         assert torch.equal(getattr(_get_comp(a, cname), fname),
                            getattr(_get_comp(b, cname), fname)), f"{cname}.{fname}"
@@ -834,3 +837,54 @@ def test_neighbors_frame_on_card_matches_cpu(cuda):
     tol = 4 * float(np.spacing(np.float32(1200.0)))
     assert (a.transform.x - b.transform.x).abs().max().item() <= tol
     assert (a.transform.y - b.transform.y).abs().max().item() <= tol
+
+
+def test_gloo_ranks_on_card_halo_bit_equal_with_slab_mesh(cuda):
+    """Two gloo ranks share the card (every message staged through pinned
+    host memory): the halo step on the gravity pile equals ``SlabMesh``'s
+    on the card after every frame, and the mesh's collectives equal
+    ``SlabMesh``'s."""
+    import torch_dist_ranks as ranks
+
+    from multithreadedgameengine_tpu_torch.parallel import run_ranks
+
+    res = run_ranks(ranks.halo_vs_slab_mesh, 2, "gloo", "cuda", args=("pile", 3),
+                    deadline_s=240.0)[0]
+    assert res["dist"] == res["slab"] and res["dist_metrics"] == res["slab_metrics"]
+    for (out,) in run_ranks(rung_collectives, 2, "gloo", "cuda", deadline_s=120.0):
+        assert all(out["equal"].values()) and out["bytes_staged"] > 0, out
+
+
+def test_nccl_mesh_of_one_rank_collectives(cuda):
+    from multithreadedgameengine_tpu_torch.parallel import run_ranks
+
+    ((out,),) = run_ranks(rung_collectives, 1, "nccl", "cuda", deadline_s=120.0)
+    assert all(out["equal"].values()) and out["bytes_staged"] == 0, out
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    from multithreadedgameengine_tpu_torch.parallel import make_process_mesh
+
+    n = torch.cuda.device_count() + 1  # some card would hold two ranks
+    with pytest.raises(ValueError, match=r"two ranks on card \d+ \(.+\)"):
+        make_process_mesh(n - 1, n, "nccl", "cuda", None, 10.0)
+
+
+def test_python_number_emits_do_not_wait_for_the_card(cuda):
+    """The dry run's mixed scene: the hunters' tick emits with Python
+    numbers (count, vy, lifespan), which are filled on the card, not copied
+    from the host, so a halo frame reads nothing from the host."""
+    from multithreadedgameengine_tpu_torch.dryrun import mixed_scene
+    from multithreadedgameengine_tpu_torch.parallel import make_halo_step, make_mesh
+
+    eng = mixed_scene(cuda, 256)
+    step, place = make_halo_step(eng, make_mesh(4, cuda))
+    chunks, ins = place(eng.world), eng.input.snapshot(cuda)
+    chunks, _m = step(chunks, ins)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunks, m = step(chunks, ins)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(m["active_particles"]) > 0

@@ -301,7 +301,8 @@ def test_halo_step_matches_reference_halo_step(n_slabs, solver):
                                          oversub=float(n_slabs))
     et = port_pile()
     et.config = _with_solver(et.config, solver)
-    step_t, place_t = make_halo_step(et, make_mesh(n_slabs, "cpu"), oversub=float(n_slabs))
+    mesh = make_mesh(n_slabs, "cpu")
+    step_t, place_t = make_halo_step(et, mesh, oversub=float(n_slabs))
     assert step_t.plan.cfg.physics.solver == ("pallas" if solver == "auto" else "grid")
     wj, ct = place_j(ej.world), place_t(et.world)
     ins_j, ins_t = ej.input.snapshot(), et.input.snapshot("cpu")
@@ -309,7 +310,7 @@ def test_halo_step_matches_reference_halo_step(n_slabs, solver):
         wj, mj = step_j(wj, ins_j)
         ct, mt = step_t(ct, ins_t)
         assert {k: int(v) for k, v in mt.items()} == {k: int(v) for k, v in mj.items()}
-        compare(jax.device_get(wj), unplace_fn(ct), ulps(1600.0, 8))
+        compare(jax.device_get(wj), unplace_fn(ct, mesh), ulps(1600.0, 8))
     assert int(mt["route_overflow_solver"]) == 0 and int(mt["solver_binned"]) == 256
 
 
@@ -321,7 +322,8 @@ def test_halo_step_is_bit_equal_with_single_device_engine():
     for e in (eh, es):
         e.input.set_mouse(800.0, 900.0)
         e.input.mouse_button(0, True)
-    step, place = make_halo_step(eh, make_mesh(4, "cpu"), oversub=4.0)
+    mesh = make_mesh(4, "cpu")
+    step, place = make_halo_step(eh, mesh, oversub=4.0)
     chunks = place(eh.world)
     ins = eh.input.snapshot("cpu")
     for _ in range(30):
@@ -329,7 +331,7 @@ def test_halo_step_is_bit_equal_with_single_device_engine():
     es.step(30)
     assert es._plan.solver_geom == step.plan.solver_geom
     assert not es._plan.symmetric  # the single-device path ran K1
-    a, b = unplace_fn(chunks), es.snapshot()
+    a, b = unplace_fn(chunks, mesh), es.snapshot()
     assert a.step_count == b.step_count == 30
     for cname, fname, _dt in entity_leaf_specs(a):
         u, v = getattr(getattr(a, cname), fname), getattr(getattr(b, cname), fname)
@@ -374,12 +376,13 @@ def test_tick_despawn_under_halo_matches_single_device():
         return eng
 
     eh, es = build(), build()
-    step, place = make_halo_step(eh, make_mesh(4, "cpu"))
+    mesh = make_mesh(4, "cpu")
+    step, place = make_halo_step(eh, mesh)
     chunks = place(eh.world)
     for _ in range(12):
         chunks, metrics = step(chunks, eh.input.snapshot("cpu"))
     es.step(12)
-    a, b = unplace_fn(chunks), es.snapshot()
+    a, b = unplace_fn(chunks, mesh), es.snapshot()
     for cname, fname, _dt in entity_leaf_specs(a):
         assert torch.equal(getattr(getattr(a, cname), fname),
                            getattr(getattr(b, cname), fname)), f"{cname}.{fname}"
@@ -389,15 +392,16 @@ def test_tick_despawn_under_halo_matches_single_device():
 
 def test_chunked_step_matches_single_steps():
     e1, e2 = port_pile(), port_pile()
-    s1, p1 = make_halo_step(e1, make_mesh(2, "cpu"))
-    s3, p3 = make_halo_step(e2, make_mesh(2, "cpu"), chunk_steps=3)
+    mesh = make_mesh(2, "cpu")
+    s1, p1 = make_halo_step(e1, mesh)
+    s3, p3 = make_halo_step(e2, mesh, chunk_steps=3)
     c1, c3 = p1(e1.world), p3(e2.world)
     ins = e1.input.snapshot("cpu")
     for _ in range(3):
         c1, _m = s1(c1, ins)
     c3, m3 = s3(c3, [ins] * 3)
     assert m3["active_count"].shape == (3,)
-    a, b = unplace_fn(c1), unplace_fn(c3)
+    a, b = unplace_fn(c1, mesh), unplace_fn(c3, mesh)
     assert torch.equal(a.transform.x, b.transform.x) and torch.equal(a.transform.y, b.transform.y)
 
 
@@ -416,13 +420,14 @@ def test_route_overflow_matches_reference():
     ej = spawn(ref_pile(spawn=False))
     et = spawn(port_pile(spawn=False))
     step_j, place_j = ref_make_halo_step(ej, ref_make_mesh(4, axis_name="slab"), oversub=0.5)
-    step_t, place_t = make_halo_step(et, make_mesh(4, "cpu"), oversub=0.5)
+    mesh = make_mesh(4, "cpu")
+    step_t, place_t = make_halo_step(et, mesh, oversub=0.5)
     wj, ct = place_j(ej.world), place_t(et.world)
     for _ in range(2):
         wj, mj = step_j(wj, ej.input.snapshot())
         ct, mt = step_t(ct, et.input.snapshot("cpu"))
         assert int(mt["route_overflow_solver"]) == int(mj["route_overflow_solver"]) > 0
-        w = unplace_fn(ct)
+        w = unplace_fn(ct, mesh)
         assert bool((w.transform.x.isfinite() & w.transform.y.isfinite()).all())
         compare(jax.device_get(wj), w, ulps(1600.0, 8))
 
@@ -516,14 +521,15 @@ def test_halo_boids_bit_equal_with_single_device_engine(n_slabs):
     for bit, every leaf of every component (the user component included),
     with no routing overflow."""
     eh, es = boids_engine(), boids_engine()
-    step, place = make_halo_step(eh, make_mesh(n_slabs, "cpu"), oversub=4.0)
+    mesh = make_mesh(n_slabs, "cpu")
+    step, place = make_halo_step(eh, mesh, oversub=4.0)
     assert step.plan.need_neighbors and step.plan.hw == 1
     chunks = place(eh.world)
     ins = eh.input.snapshot("cpu")
     for _ in range(4):
         chunks, metrics = step(chunks, ins)
     es.step(4)
-    a = unplace_fn(chunks)
+    a = unplace_fn(chunks, mesh)
     assert set(a.custom) == {"flocking"}
     assert_all_leaves_equal(a, es.snapshot())
     assert int(metrics["route_overflow_logic"]) == 0
@@ -554,13 +560,14 @@ class Herder(EntityClass):
 
 def test_halo_gather_of_undeclared_fields_bit_equal():
     eh, es = boids_engine(Herder), boids_engine(Herder)
-    step, place = make_halo_step(eh, make_mesh(4, "cpu"), oversub=4.0)
+    mesh = make_mesh(4, "cpu")
+    step, place = make_halo_step(eh, mesh, oversub=4.0)
     assert step.plan.payload_channels == {"transform.x": 1, "transform.y": 2}
     chunks = place(eh.world)
     for _ in range(3):
         chunks, _m = step(chunks, eh.input.snapshot("cpu"))
     es.step(3)
-    assert_all_leaves_equal(unplace_fn(chunks), es.snapshot())
+    assert_all_leaves_equal(unplace_fn(chunks, mesh), es.snapshot())
     assert float(es.world.rigid_body.vx.abs().sum()) > 0
 
 
@@ -570,12 +577,13 @@ def test_halo_boids_logic_route_overflow_degrades():
     counted, the rows left home keep their state for the frame, positions
     stay finite."""
     eng = boids_engine(y_range=(1450, 1550), seed=4, sub_step_count=1)
-    step, place = make_halo_step(eng, make_mesh(4, "cpu"), oversub=0.5)
+    mesh = make_mesh(4, "cpu")
+    step, place = make_halo_step(eng, mesh, oversub=0.5)
     chunks = place(eng.world)
     for _ in range(2):
         chunks, metrics = step(chunks, eng.input.snapshot("cpu"))
     assert int(metrics["route_overflow_logic"]) > 0
-    w = unplace_fn(chunks)
+    w = unplace_fn(chunks, mesh)
     assert bool((w.transform.x.isfinite() & w.transform.y.isfinite()).all())
 
 

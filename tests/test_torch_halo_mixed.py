@@ -334,12 +334,13 @@ class RefHalo:
 
 class PortHalo:
     def __init__(self, eng, n_dev=D, **kw):
-        self.step, place = make_halo_step(eng, make_mesh(n_dev, "cpu"), **kw)
+        self.mesh = make_mesh(n_dev, "cpu")
+        self.step, place = make_halo_step(eng, self.mesh, **kw)
         self.chunks = place(eng.world)
 
     def __call__(self, ins):
         self.chunks, m = self.step(self.chunks, ins)
-        return unplace_fn(self.chunks), m
+        return unplace_fn(self.chunks, self.mesh), m
 
 
 def event_rows(w):
@@ -561,9 +562,10 @@ class TestHaloChunkedStep:
         for ins_j, ins_t in zip(snaps(ej), snaps(e1, "cpu")):
             a, _mj = rj(ins_j)
             b1, m1 = r1(ins_t)
-        step3, place3 = make_halo_step(e3, make_mesh(D, "cpu"), chunk_steps=K)
+        mesh = make_mesh(D, "cpu")
+        step3, place3 = make_halo_step(e3, mesh, chunk_steps=K)
         c3, m3 = step3(place3(e3.world), snaps(e3, "cpu"))
-        b3 = unplace_fn(c3)
+        b3 = unplace_fn(c3, mesh)
         assert_entities_equal(b1, b3)
         assert c3[0].step_count == K
         assert m3["active_count"].shape == (K,)
@@ -579,9 +581,10 @@ class TestHaloChunkedStep:
         for _ in range(K):
             a, _mj = rj(ej.input.snapshot())
             b1, _m1 = r1(e1.input.snapshot("cpu"))
-        step6, place6 = make_halo_step(e6, make_mesh(D, "cpu"), chunk_steps=K)
+        mesh = make_mesh(D, "cpu")
+        step6, place6 = make_halo_step(e6, mesh, chunk_steps=K)
         c6, _m6 = step6(place6(e6.world), [e6.input.snapshot("cpu")] * K)
-        b6 = unplace_fn(c6)
+        b6 = unplace_fn(c6, mesh)
         assert_entities_equal(b1, b6)
         assert event_rows(b6) == event_rows(b1) == event_rows(a)
         assert torch.equal(b6.prev_collision_pairs, b6.collision_pairs)

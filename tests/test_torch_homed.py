@@ -368,12 +368,13 @@ class TestTickRowIndex:
     def test_halo_step_hands_the_local_row(self):
         ej, et = self.scene("jax"), self.scene("torch")
         step_j, place_j = ref_make_halo_step(ej, ref_make_mesh(self.N_DEV, axis_name="slab"))
-        step_t, place_t = make_halo_step(et, make_mesh(self.N_DEV, "cpu"))
+        mesh = make_mesh(self.N_DEV, "cpu")
+        step_t, place_t = make_halo_step(et, mesh)
         wj, ct = place_j(ej.world), place_t(et.world)
         for _ in range(2):
             wj, _m = step_j(wj, ej.input.snapshot())
             ct, _m = step_t(ct, et.input.snapshot("cpu"))
-        a, b = jax.device_get(wj), unplace_fn(ct)
+        a, b = jax.device_get(wj), unplace_fn(ct, mesh)
         np.testing.assert_array_equal(self.rows(b).astype(np.int32), self.rows(a))
         # a home chunk holds N / D consecutive ids
         rows = 64 // self.N_DEV
@@ -521,6 +522,33 @@ class TestLiveControlPlane:
                 w = h.unplace(h.chunks, h.gids)
                 assert bool(w.transform.active[idx].all())
                 assert torch.equal(pack_world_rows(w, h.step.plan.leaf_specs)[idx], rows)
+        finally:
+            torch.set_num_threads(threads)
+
+    def test_gather_reads_the_later_of_two_rows(self):
+        """``ctx.gather``'s resolver under the homed step reads a gid held
+        by two rows from the later one in slab-then-row order, as
+        ``unplace`` does, however many CPU threads copy the rows (80,000
+        gathered entries: torch's CPU ``index_copy_`` splits such a copy
+        over threads)."""
+        from multithreadedgameengine_tpu_torch.parallel.homed import _gather_homed
+        from multithreadedgameengine_tpu_torch.state import make_world
+
+        n, rows = 60_000, 20_000
+        homes, gids = [], []
+        for s in range(4):  # slabs 0-1 park gids 0-39,999; slabs 2-3 hold them later
+            g = torch.arange(rows, dtype=torch.int32) + (s % 2) * rows
+            w = make_world(rows, "cpu")
+            x = g.to(torch.float32) if s >= 2 else torch.full((rows,), -1.0)
+            homes.append(w.replace(transform=w.transform.replace(x=x)))
+            gids.append(g)
+        want = torch.where(torch.arange(n) < 2 * rows, torch.arange(n, dtype=torch.float32), 0.0)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(8)
+        try:
+            for _ in range(10):
+                got = _gather_homed(make_mesh(4, "cpu"), homes, gids, n)("transform.x")
+                assert torch.equal(got, want)
         finally:
             torch.set_num_threads(threads)
 
