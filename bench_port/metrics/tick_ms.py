@@ -1,0 +1,11 @@
+"""tick_ms: device ms a frame of the operations the program issues inside
+its ``behavior`` span (the entity classes' ticks), over the spans' traced
+frames (``spans.of_run``). Nothing where the program opens no such span."""
+
+from ..spans import per_frame_ms
+
+UNIT = "ms"
+
+
+def read(run):
+    return per_frame_ms(run, "behavior")

@@ -43,6 +43,9 @@ engine.py:1460-1824), run eagerly:
 9. with shadows: ``ops.lighting.shadow_sprites`` (or
    ``shadow_sprites_by_class`` over per-class lists), and the step metrics.
 
+While a ``torch.profiler`` records, each of these calls, the call's
+preparation and the hook dispatch is a named span (``profiling.span``).
+
 Events reach the host in one of two ways (engine.py:2516-2583). A frame
 stepped alone reads the three event counts (and the screen table) and fires
 the hooks at once: scalar hooks per pair, both orientations in table order,
@@ -141,7 +144,7 @@ from .ops.spatial import (
     neighbor_lists,
     neighbor_lists_by_class,
 )
-from .profiling import PhaseProfiler, StepTimer, TimelineLog
+from .profiling import PhaseProfiler, StepTimer, TimelineLog, span
 from .render.extract import (
     RenderPacket,
     advance_animation,
@@ -1383,114 +1386,132 @@ class Engine:
         cfg = plan.cfg
         world = apply_inputs(world, inputs)
         if plan.need_neighbors:  # the frame's neighbour block (engine.py:1472-1518)
-            t, c = world.transform, world.collider
-            extras = tuple(self._collision_channel(world) if p == "__collision__"
-                           else read_field(world, p) for p in plan.extra_paths)
-            if plan.nbr_specs:
-                nbr, n_binned = neighbor_lists_by_class(
-                    t.x, t.y, t.active, c.visual_range, cfg, extras, plan.nbr_specs)
-            else:
-                nbr = neighbor_lists(t.x, t.y, t.active, c.visual_range, cfg, extras)
-                n_binned = nbr.n_binned
+            with span("ops.spatial"):
+                t, c = world.transform, world.collider
+                extras = tuple(self._collision_channel(world) if p == "__collision__"
+                               else read_field(world, p) for p in plan.extra_paths)
+                if plan.nbr_specs:
+                    nbr, n_binned = neighbor_lists_by_class(
+                        t.x, t.y, t.active, c.visual_range, cfg, extras, plan.nbr_specs)
+                    accepted = torch.sum(torch.cat([lists.count for lists in nbr.values()]),
+                                         dtype=torch.int32)
+                else:
+                    nbr = neighbor_lists(t.x, t.y, t.active, c.visual_range, cfg, extras)
+                    n_binned = nbr.n_binned
+                    accepted = torch.sum(nbr.count, dtype=torch.int32)
         else:
             nbr = plan.empty_nbr
-            n_binned = nbr.n_binned
-        world, emissions = run_logic_phase(world, nbr, inputs, cfg, plan.type_ranges,
-                                           plan.payload_channels)
+            n_binned = accepted = nbr.n_binned
+        with span("behavior"):
+            world, emissions = run_logic_phase(world, nbr, inputs, cfg, plan.type_ranges,
+                                               plan.payload_channels)
         if plan.shadows_on:  # the shadow pass reads the lights' ids and d2
             if plan.nbr_specs:
                 light_nbr = [(s, c, nbr[name]) for name, s, c in plan.light_ranges]
             else:
                 light_nbr = nbr.replace(payload=None)
         if cfg.logic.collision_events:  # what pair recording reads of the lists
-            contact_rows = self._contact_rows(nbr)
+            with span("ops.events"):
+                contact_rows = self._contact_rows(nbr)
         # the neighbour-list solver reads the global lists (engine.py:
         # 1536-1543); otherwise the candidate rows (288 MB on boids_15k) go
         # before the solver runs
         solver_nbr = nbr if plan.solver_geom is None else None
         del nbr
-        world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
-        if residency:
-            world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
-                world, cfg, plan.solver_geom, inputs, plan.force_specs,
-                cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
-            )
-            world = update_derived(world, cfg)
-        else:
-            world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio, plan.solver_geom,
-                                                  solver_nbr)
-            band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
+        with span("render.animation"):
+            world = advance_animation(world, plan.frame_counts, cfg.dt_ratio)
+        with span("ops.physics"):
+            if residency:
+                world, _n_binned, solver_overflow, band_drift = resident_persistent_step(
+                    world, cfg, plan.solver_geom, inputs, plan.force_specs,
+                    cfg.dt_ratio, plan.pin_rows, plan.band_vel_bound,
+                )
+                world = update_derived(world, cfg)
+            else:
+                world, solver_overflow = physics_step(world, cfg, cfg.dt_ratio,
+                                                      plan.solver_geom, solver_nbr)
+                band_drift = torch.zeros((), dtype=torch.int32, device=self.device)
         if cfg.logic.collision_events:
             # contact pairs from the frame-start lists, the one-frame-stale
             # set the reference's logic workers read (logic_worker.js:429-443),
             # then the Enter/Stay/Exit difference against the last frame's
-            world, pairs_dropped = self._record_pairs(world, *contact_rows)
-            enter, n_e, stay, n_s, exit_, n_x = diff_pairs(
-                world.collision_pairs, world.collision_pair_count,
-                world.prev_collision_pairs, world.prev_collision_pair_count)
-            world = world.replace(
-                prev_collision_pairs=world.collision_pairs,
-                prev_collision_pair_count=world.collision_pair_count,
-                event_enter=enter, event_enter_count=n_e, event_stay=stay,
-                event_stay_count=n_s, event_exit=exit_, event_exit_count=n_x)
+            with span("ops.events"):
+                world, pairs_dropped = self._record_pairs(world, *contact_rows)
+                enter, n_e, stay, n_s, exit_, n_x = diff_pairs(
+                    world.collision_pairs, world.collision_pair_count,
+                    world.prev_collision_pairs, world.prev_collision_pair_count)
+                world = world.replace(
+                    prev_collision_pairs=world.collision_pairs,
+                    prev_collision_pair_count=world.collision_pair_count,
+                    event_enter=enter, event_enter_count=n_e, event_stay=stay,
+                    event_stay_count=n_s, event_exit=exit_, event_exit_count=n_x)
         p_active = torch.full((), -1, dtype=torch.int32, device=self.device)
         if plan.has_particles:  # the particle worker's phases (engine.py:1714-1741)
-            pool, stamps, p_active = update_particles(
-                world.particles, cfg, cfg.dt_ratio, plan.decal_textures is not None)
-            world = world.replace(particles=pool)
-            if plan.decal_textures is not None:
-                canvas, dirty = stamp_decals(world.decal_canvas, world.decal_dirty, stamps,
-                                             plan.decal_textures, cfg)
-                world = world.replace(decal_canvas=canvas, decal_dirty=dirty)
-            # tick emissions land after this frame's pool update: new
-            # particles first move next frame
-            if emissions and cfg.particle.max_emit_per_step > 0:
-                pool, spawned = apply_tick_emissions(world.particles, emissions,
-                                                     cfg.particle.max_emit_per_step)
+            with span("ops.particles"):
+                pool, stamps, p_active = update_particles(
+                    world.particles, cfg, cfg.dt_ratio, plan.decal_textures is not None)
                 world = world.replace(particles=pool)
-                p_active = p_active + spawned
-            world = update_particle_visibility(world, cfg, inputs)
-        world = update_entity_visibility(world, cfg, inputs)
-        if cfg.logic.screen_events:  # onScreen Enter/Exit (engine.py:1751-1776)
-            cur = world.sprite.is_on_screen & world.transform.active
-            prev = world.prev_onscreen
-            cap_s = cfg.logic.max_screen_events
-            gid = torch.arange(world.n_entities, dtype=torch.int32, device=self.device)
+                if plan.decal_textures is not None:
+                    with span("ops.decals"):
+                        canvas, dirty = stamp_decals(world.decal_canvas, world.decal_dirty,
+                                                     stamps, plan.decal_textures, cfg)
+                    world = world.replace(decal_canvas=canvas, decal_dirty=dirty)
+                # tick emissions land after this frame's pool update: new
+                # particles first move next frame
+                if emissions and cfg.particle.max_emit_per_step > 0:
+                    pool, spawned = apply_tick_emissions(world.particles, emissions,
+                                                         cfg.particle.max_emit_per_step)
+                    world = world.replace(particles=pool)
+                    p_active = p_active + spawned
+                world = update_particle_visibility(world, cfg, inputs)
+        with span("ops.culling"):
+            world = update_entity_visibility(world, cfg, inputs)
+            if cfg.logic.screen_events:  # onScreen Enter/Exit (engine.py:1751-1776)
+                cur = world.sprite.is_on_screen & world.transform.active
+                prev = world.prev_onscreen
+                cap_s = cfg.logic.max_screen_events
+                gid = torch.arange(world.n_entities, dtype=torch.int32, device=self.device)
 
-            def compact_ids(mask):
-                return (compact_rows(mask, gid, cap_s),
-                        torch.clamp(torch.sum(mask, dtype=torch.int32), max=cap_s))
+                def compact_ids(mask):
+                    return (compact_rows(mask, gid, cap_s),
+                            torch.clamp(torch.sum(mask, dtype=torch.int32), max=cap_s))
 
-            (se_tbl, se_n), (sx_tbl, sx_n) = compact_ids(cur & ~prev), compact_ids(~cur & prev)
-            world = world.replace(prev_onscreen=cur, screen_events_packed=torch.cat(
-                [se_n[None], sx_n[None], se_tbl, sx_tbl]))
+                (se_tbl, se_n), (sx_tbl, sx_n) = (compact_ids(cur & ~prev),
+                                                  compact_ids(~cur & prev))
+                world = world.replace(prev_onscreen=cur, screen_events_packed=torch.cat(
+                    [se_n[None], sx_n[None], se_tbl, sx_tbl]))
         if plan.shadows_on:  # with this frame's visibility (engine.py:1778-1798)
-            world = world.replace(shadow_sprites=(
-                shadow_sprites_by_class(world, light_nbr, cfg) if plan.nbr_specs
-                else shadow_sprites(world, light_nbr, cfg)))
-        world = world.replace(step_count=world.step_count + 1)
-        t = world.transform
-        metrics = {
-            "active_count": torch.sum(t.active, dtype=torch.int32),
-            # entities in the neighbour grid table (-1: no lists built)
-            "n_binned": n_binned,
-            # live particles after the frame's emissions (-1: no pool)
-            "active_particles": p_active,
-            # grid-solver cell-capacity overflow: entities degraded to
-            # boundary-only this frame
-            "solver_overflow": solver_overflow,
-            # NaN/explosion guard: active entities with non-finite positions
-            "nonfinite_count": torch.sum(
-                t.active & ~(torch.isfinite(t.x) & torch.isfinite(t.y)), dtype=torch.int32
-            ),
-            # banded-boundary assumption monitor: entities that out-drifted
-            # the px/py bounce band (0 in healthy runs)
-            "boundary_band_drift": band_drift,
-        }
-        if cfg.logic.collision_events:
-            metrics["collision_pair_count"] = world.collision_pair_count
-            # pairs lost to the per-row cap or to max_collision_pairs
-            metrics["collision_pairs_dropped"] = pairs_dropped
+            with span("ops.lighting"):
+                world = world.replace(shadow_sprites=(
+                    shadow_sprites_by_class(world, light_nbr, cfg) if plan.nbr_specs
+                    else shadow_sprites(world, light_nbr, cfg)))
+        with span("engine.metrics"):
+            world = world.replace(step_count=world.step_count + 1)
+            t = world.transform
+            metrics = {
+                "active_count": torch.sum(t.active, dtype=torch.int32),
+                # entities in the neighbour grid table (-1: no lists built)
+                "n_binned": n_binned,
+                # the lists' accepted neighbours summed over every row (and
+                # class): the filled share of the candidate slots (-1: no lists)
+                "neighbors_accepted": accepted,
+                # live particles after the frame's emissions (-1: no pool)
+                "active_particles": p_active,
+                # grid-solver cell-capacity overflow: entities degraded to
+                # boundary-only this frame
+                "solver_overflow": solver_overflow,
+                # NaN/explosion guard: active entities with non-finite positions
+                "nonfinite_count": torch.sum(
+                    t.active & ~(torch.isfinite(t.x) & torch.isfinite(t.y)), dtype=torch.int32
+                ),
+                # banded-boundary assumption monitor: entities that out-drifted
+                # the px/py bounce band (0 in healthy runs)
+                "boundary_band_drift": band_drift,
+            }
+            if cfg.logic.collision_events:
+                metrics["collision_pair_count"] = world.collision_pair_count
+                # pairs lost to the per-row cap or to max_collision_pairs
+                metrics["collision_pairs_dropped"] = pairs_dropped
         return world, metrics
 
     def _collision_channel(self, world: World) -> torch.Tensor:
@@ -1627,6 +1648,10 @@ class Engine:
         self._require_init()
         if self.paused or n <= 0:
             return self.metrics
+        with span("engine.step"):
+            return self._step(n, block)
+
+    def _step(self, n: int, block: bool) -> Dict[str, torch.Tensor]:
         self._check_events_rebuild()
         lg = self.config.logic
         if (lg.collision_events or lg.screen_events) and n > 1:
@@ -1640,18 +1665,20 @@ class Engine:
             if block:
                 self.sync()
             return metrics
-        # the plan is built before the queued writes land, as the reference
-        # builds its step before flushing (engine.py:2555-2558): the first
-        # step's geometry sees the spawns' radii only through _max_radius
-        built_now = self._plan is None
-        if built_now:
-            self._plan = self._build_plan()
-        self._flush_pending()
-        if self._plan is None:  # the flush wrote a radius above the bound
-            self._plan = self._build_plan()
-        self._flush_emissions()
-        plan = self._plan
-        inputs = self.input.snapshot(self.device)
+        with span("engine.prepare"):
+            # the plan is built before the queued writes land, as the
+            # reference builds its step before flushing (engine.py:
+            # 2555-2558): the first step's geometry sees the spawns' radii
+            # only through _max_radius
+            built_now = self._plan is None
+            if built_now:
+                self._plan = self._build_plan()
+            self._flush_pending()
+            if self._plan is None:  # the flush wrote a radius above the bound
+                self._plan = self._build_plan()
+            self._flush_emissions()
+            plan = self._plan
+            inputs = self.input.snapshot(self.device)
         t0 = time.perf_counter()
         world = self.world
         if plan.lazy_chunks and n > 1:
@@ -1664,7 +1691,8 @@ class Engine:
                     drift = torch.maximum(metrics["boundary_band_drift"], drift)
                     metrics["boundary_band_drift"] = drift
                 else:
-                    world, frame_drift = self._lazy_frame(world, inputs)
+                    with span("ops.physics.lazy"):
+                        world, frame_drift = self._lazy_frame(world, inputs)
                     drift = torch.maximum(drift, frame_drift)
                     self.lazy_frames += 1
         else:
@@ -1674,10 +1702,12 @@ class Engine:
         if block or self._profiling:
             self.sync()
         self._time_steps(t0, n, built_now)
-        if lg.collision_events:
-            self._dispatch_collision_events()
-        if lg.screen_events:
-            self._dispatch_screen_events()
+        if lg.collision_events or lg.screen_events:
+            with span("engine.dispatch_events"):
+                if lg.collision_events:
+                    self._dispatch_collision_events()
+                if lg.screen_events:
+                    self._dispatch_screen_events()
         return metrics
 
     # ------------------------------------------------------------------
@@ -1718,11 +1748,12 @@ class Engine:
         # the held chunk is taken first: _flush_pending would fire it here
         # and lose the overlap across calls
         held, self._pending_log = self._pending_log, None
-        self._flush_pending()
-        if self._plan is None:  # the flush wrote a radius above the bound
-            self._plan = self._build_plan()
-        self._flush_emissions()
-        inputs = self.input.snapshot(self.device)
+        with span("engine.prepare"):
+            self._flush_pending()
+            if self._plan is None:  # the flush wrote a radius above the bound
+                self._plan = self._build_plan()
+            self._flush_emissions()
+            inputs = self.input.snapshot(self.device)
         has_hooks = self._has_collision_hooks() or any(self._screen_hooked2())
         specs = self._log_specs()
         overlap = self.config.logic.event_overlap
@@ -1787,13 +1818,14 @@ class Engine:
         if not plan.frames or self.paused:
             return self.metrics
         self._check_events_rebuild()
-        built_now = self._plan is None
-        if built_now:
-            self._plan = self._build_plan()
-        self._flush_pending()
-        if self._plan is None:  # the flush wrote a radius above the bound
-            self._plan = self._build_plan()
-        self._flush_emissions()
+        with span("engine.prepare"):
+            built_now = self._plan is None
+            if built_now:
+                self._plan = self._build_plan()
+            self._flush_pending()
+            if self._plan is None:  # the flush wrote a radius above the bound
+                self._plan = self._build_plan()
+            self._flush_emissions()
         lg = self.config.logic
         events_on = ((lg.collision_events and self._has_collision_hooks())
                      or (lg.screen_events and any(self._screen_hooked2())))
@@ -1801,7 +1833,8 @@ class Engine:
         for pos in range(0, len(plan.frames), max_chunk):
             t0 = time.perf_counter()
             chunk = plan.frames[pos:pos + max_chunk]
-            metrics = self._run_plan_chunk(chunk, events_on)
+            with span("engine.run_plan"):
+                metrics = self._run_plan_chunk(chunk, events_on)
             self._time_steps(t0, len(chunk), built_now and pos == 0)
         return metrics
 
@@ -1922,26 +1955,27 @@ class Engine:
         (engine.py:2275-2319): collision kinds through
         ``CollisionEventCtx.from_logged``, screen kinds per id. The hooks'
         spawns, despawns and emissions land before the next chunk."""
-        by_tag = log.tables()
-        if any(int(counts.sum()) for _ids, counts, _co in by_tag.values()):
-            for f in range(log.k):
-                if "event_enter" in by_tag:
-                    (enter, n_e, e_co), (stay, n_s, s_co), (exit_, n_x, x_co) = (
-                        by_tag["event_enter"], by_tag["event_stay"], by_tag["event_exit"])
-                    ce, cs, cx = int(n_e[f]), int(n_s[f]), int(n_x[f])
-                    if ce or cs or cx:
-                        ctx = CollisionEventCtx.from_logged(self, [
-                            (enter[f, :ce], e_co[f, :ce]), (stay[f, :cs], s_co[f, :cs]),
-                            (exit_[f, :cx], x_co[f, :cx])])
-                        self._fire_collision_tables(ctx, enter[f, :ce], stay[f, :cs],
-                                                    exit_[f, :cx])
-                if "s_enter" in by_tag:
-                    (s_en, n_se, _), (s_ex, n_sx, _) = by_tag["s_enter"], by_tag["s_exit"]
-                    cse, csx = int(n_se[f]), int(n_sx[f])
-                    if cse or csx:
-                        self._fire_screen_tables(s_en[f, :cse, 0], s_ex[f, :csx, 0])
-        self._flush_pending()
-        self._flush_emissions()
+        with span("engine.dispatch_events"):
+            by_tag = log.tables()
+            if any(int(counts.sum()) for _ids, counts, _co in by_tag.values()):
+                for f in range(log.k):
+                    if "event_enter" in by_tag:
+                        (enter, n_e, e_co), (stay, n_s, s_co), (exit_, n_x, x_co) = (
+                            by_tag["event_enter"], by_tag["event_stay"], by_tag["event_exit"])
+                        ce, cs, cx = int(n_e[f]), int(n_s[f]), int(n_x[f])
+                        if ce or cs or cx:
+                            ctx = CollisionEventCtx.from_logged(self, [
+                                (enter[f, :ce], e_co[f, :ce]), (stay[f, :cs], s_co[f, :cs]),
+                                (exit_[f, :cx], x_co[f, :cx])])
+                            self._fire_collision_tables(ctx, enter[f, :ce], stay[f, :cs],
+                                                        exit_[f, :cx])
+                    if "s_enter" in by_tag:
+                        (s_en, n_se, _), (s_ex, n_sx, _) = by_tag["s_enter"], by_tag["s_exit"]
+                        cse, csx = int(n_se[f]), int(n_sx[f])
+                        if cse or csx:
+                            self._fire_screen_tables(s_en[f, :cse, 0], s_ex[f, :csx, 0])
+            self._flush_pending()
+            self._flush_emissions()
 
     # ------------------------------------------------------------------
     # event dispatch (logic_worker.js:417-554)

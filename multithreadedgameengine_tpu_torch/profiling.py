@@ -1,4 +1,4 @@
-"""Step timing, the init timeline and per-phase profiling.
+"""Step timing, the init timeline, per-phase profiling and the frame's spans.
 
 PyTorch counterpart of ``multithreadedgameengine_tpu/profiling.py:24-136``:
  - the per-worker moving-average FPS panels (AbstractWorker.js:66-104,
@@ -11,13 +11,48 @@ PyTorch counterpart of ``multithreadedgameengine_tpu/profiling.py:24-136``:
 
 Times on the card are CUDA events around the repetitions, ended by a
 synchronise; on the CPU, ``time.perf_counter``.
+
+:func:`span` names the engine's calls into each layer on the profiler's
+own timeline (``record_function`` ranges, on the clock of the card's
+kernel and copy records), and only while a profiler runs; otherwise it
+costs one check. The engine opens, nested as listed:
+
+- ``engine.step``: each ``Engine.step`` call (a frame stepped alone inside
+  ``step(n)`` opens its own); ``engine.run_plan``: each plan chunk;
+- ``engine.prepare``: the plan build, the queued writes and emissions
+  landing, the input snapshot;
+- in each frame: ``ops.spatial`` (the neighbour lists and the payload
+  reads), ``behavior`` (the ticks), ``render.animation``, ``ops.physics``
+  (the move, the solver, the derived properties), ``ops.events`` (the pair
+  rows, the recording and the Enter/Stay/Exit difference; events on
+  only), ``ops.particles`` with ``ops.decals`` inside it, ``ops.culling``
+  (visibility and screen events), ``ops.lighting`` (shadow sprites),
+  ``engine.metrics``;
+- ``ops.physics.lazy``: a lazy-chunk frame;
+- ``engine.dispatch_events``: the hooks fired after a frame or a chunk.
+
+The slab, homed, sharded and process-mesh steps (``parallel``) and the
+render server open none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Dict, List
+
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else one shared context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StepTimer:
@@ -122,7 +157,13 @@ class PhaseProfiler:
 
     def trace(self, path: str, steps: int = 10) -> str:
         """A ``torch.profiler`` trace of ``steps`` frames (host, and the
-        card's kernels on CUDA), written as a Chrome trace to ``path``."""
+        card's kernels on CUDA), written as a Chrome trace to ``path``.
+        The trace holds the engine's spans (:func:`span`): ``engine.step``
+        around the call, ``engine.prepare``, and in each frame
+        ``ops.spatial``, ``behavior``, ``render.animation``,
+        ``ops.physics``, ``ops.events``, ``ops.particles``/``ops.decals``,
+        ``ops.culling``, ``ops.lighting`` and ``engine.metrics``, as the
+        scene runs them; ``engine.dispatch_events`` after the frames."""
         from torch.profiler import ProfilerActivity, profile
 
         eng = self._engine

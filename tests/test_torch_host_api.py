@@ -20,6 +20,8 @@ helpers: integer colours exact, float results equal to float32 rounding
 (both packages compute each in float32 in the same order).
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -141,9 +143,12 @@ def stats_run(pkg):
 def test_stats_and_timer():
     runs = both(stats_run)
     (ej, sj), (et, st) = runs["jax"], runs["torch"]
-    # the pair metrics exist only with collision events in the port, a
-    # kept difference (ROADMAP.md section 3)
-    assert st.keys() == sj.keys() - {"collision_pair_count", "collision_pairs_dropped"}
+    # the pair metrics exist only with collision events in the port, and
+    # the port alone counts the lists' accepted neighbours: kept
+    # differences (ROADMAP.md section 3)
+    assert st.keys() == ((sj.keys() - {"collision_pair_count", "collision_pairs_dropped"})
+                         | {"neighbors_accepted"})
+    assert st["neighbors_accepted"] == -1  # balls build no lists
     assert st["total_steps"] == sj["total_steps"] == 5
     assert st["steps_per_sec"] > 0 and st["ms_per_step"] > 0
     assert st["pools"] == sj["pools"]
@@ -187,6 +192,15 @@ def test_phase_profiler_and_trace(tmp_path):
     path = eng.profiler.trace(str(tmp_path / "trace.json"), steps=2)
     assert (tmp_path / "trace.json").stat().st_size > 0 and path.endswith("trace.json")
     assert eng.world.step_count == 3
+    # the trace names the engine's spans; a scene that builds neighbour
+    # lists opens ops.spatial
+    from test_torch_spans import boids_engine
+
+    boids = boids_engine(n=60)
+    boids.profiler.trace(str(tmp_path / "boids.json"), steps=2)
+    trace = json.loads((tmp_path / "boids.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"engine.step", "engine.prepare", "ops.spatial", "behavior", "ops.physics"} <= names
 
 
 # ---------------------------------------------------------------------------

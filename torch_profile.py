@@ -30,26 +30,23 @@ phase 21; no HTTP client), and the demo scene on the neighbour-list solver
   ending in ``torch.cuda.synchronize`` (profiler off);
 - profiles one more chunk with ``torch.profiler`` (CPU and CUDA activities)
   and sums device time by kernel name;
-- for boids_15k and predators_15k, profiles ``--frames`` builds of the
-  frame's neighbour lists alone (``ops.spatial.neighbor_lists`` on the
-  cell's last world), and for predators_15k ``--frames`` calls of the
-  64-stamp decal loop alone (``ops.decals.stamp_decals`` on the stamp batch
-  of the cell's last pool), and reports the device time of one and its
-  share of a frame's;
+- reduces that chunk's trace by the engine's spans (``profiling.span``,
+  through ``bench_port/spans.py``): each span's device ms, operations and
+  host self ms a frame (the neighbour build is ``ops.spatial``, the stamp
+  loop ``ops.decals``, the event difference ``ops.events``; the slab and
+  homed steps open no span, so their work is ``between_spans``);
 - for render_balls_10k, profiles ``--frames`` calls of ``encode_frame``
   alone (the frame's extraction, compaction and one copy to the host);
-- for predators_15k_events, profiles ``--frames`` calls of the event
-  difference alone (``ops.events.diff_pairs`` on the cell's last pair
-  tables), and times each host read and dispatch of a chunk's event log
-  (the copy's wait, the hooks, the emissions they queue landing in the
-  pool) on the host clock, and reports its bytes.
+- for predators_15k_events, times each host read and dispatch of a chunk's
+  event log (the copy's wait, the hooks, the emissions they queue landing
+  in the pool) on the host clock, and reports its bytes.
 
 It prints, per cell, wall ms/step (median of the three chunks, profiler
 off), device ms/step and the device's busy share over the profiled chunk,
-device operations per step, and the top device kernels, and writes the same
-as JSON to ``--out``. Device numbers come from the profiler's CUDA
-activity; the script fails rather than report them if the profiler saw no
-device time. Imports nothing of JAX.
+device operations per step, the top device kernels and the spans' table,
+and writes the same as JSON to ``--out``. Device numbers come from the
+profiler's CUDA activity; the script fails rather than report them if the
+profiler saw no device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -83,7 +80,6 @@ from chip_smoke import (
     card_name_and_limit,
     churn_frames,
     halo_predators_engine,
-    neighbor_lists_of,
     predators_engine,
 )
 
@@ -108,15 +104,11 @@ CELLS = {
 
 def engine_runner(kw: dict):
     """``run(frames)`` through ``Engine.step``, what its plan picked, and
-    the parts profiled alone ({name: fn}: the neighbour build of a scene
-    that builds lists, the stamp loop of one with decals)."""
+    the parts profiled alone ({name: fn}: ``encode_frame`` behind the render
+    server, which opens no span)."""
     import numpy as np
 
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
-    from multithreadedgameengine_tpu_torch.ops.decals import stamp_decals
-    from multithreadedgameengine_tpu_torch.ops.events import diff_pairs
-    from multithreadedgameengine_tpu_torch.ops.particles import update_particles
-
     from multithreadedgameengine_tpu_torch.server.render_server import (
         RenderServer,
         encode_frame,
@@ -175,31 +167,7 @@ def engine_runner(kw: dict):
             }
         return out
 
-    def lists():
-        neighbor_lists_of(eng.world, eng.config)
-
-    stamps = []
-
-    def stamp_loop():
-        w, cfg = eng.world, eng.config
-        if not stamps:
-            stamps.append(update_particles(w.particles, cfg, cfg.dt_ratio, True)[1])
-        stamp_decals(w.decal_canvas, w.decal_dirty, stamps[0], eng._plan.decal_textures, cfg)
-
-    def event_diff():
-        w = eng.world
-        diff_pairs(w.collision_pairs, w.collision_pair_count, w.prev_collision_pairs,
-                   w.prev_collision_pair_count)
-
-    alone = {}
-    if render:
-        alone["encode_frame"] = lambda: encode_frame(eng)
-    if kw.get("events"):
-        alone["diff_pairs"] = event_diff
-    if "boids" in kw or ("predators" in kw and not kw.get("events")):
-        alone["neighbor_lists"] = lists
-    if "predators" in kw and not kw.get("events"):
-        alone["stamp_decals"] = stamp_loop
+    alone = {"encode_frame": lambda: encode_frame(eng)} if render else {}
     return run, info, alone
 
 
@@ -245,18 +213,24 @@ def halo_runner(kw: dict):
 
 
 def device_us(prof):
-    """[(device us, calls, kernel name)] of a profile, and their sum."""
+    """[(device us, calls, kernel name)] of a profile, and their sum. A
+    span's annotation on the device's timeline (the engine's
+    ``record_function`` ranges) is no kernel."""
     import torch
 
+    spans = {e.name() for e in prof.profiler.kineto_results.events() if e.is_user_annotation()}
     by_kernel = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-                 if ev.self_device_time_total > 0
+                 if ev.self_device_time_total > 0 and ev.key not in spans
                  and ev.device_type == torch.autograd.DeviceType.CUDA]
     return by_kernel, sum(k[0] for k in by_kernel)
 
 
 def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bench_port.spans import profile_events, reduce_spans
+    from bench_port.trace import WINDOW
 
     run, info, alone = (halo_runner if name.startswith(("halo", "homed"))
                         else engine_runner)(kw)
@@ -268,10 +242,12 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
         walls.append((time.perf_counter() - t0) / frames)
     lazy0 = info()["lazy_frames"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(frames)
-        wall_on = time.perf_counter() - t0
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            run(frames)
+            wall_on = time.perf_counter() - t0
     by_kernel, total_us = device_us(prof)
+    spans = reduce_spans(profile_events(prof), frames)
     n_ops = sum(k[1] for k in by_kernel)
     if total_us <= 0:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
@@ -295,6 +271,11 @@ def profile_cell(name: str, kw: dict, frames: int, top: int) -> dict:
              "share": us / total_us}
             for us, c, k in by_kernel[:top]
         ],
+        "spans": {path: {"device_ms_per_step": r.device_ns / 1e6 / frames,
+                         "device_ops_per_step": r.device_ops / frames,
+                         "host_self_ms_per_step": r.host_self_ns / 1e6 / frames}
+                  for path, r in sorted(spans.rows.items())},
+        "spans_table": spans.table(),
     }
     for part, fn in alone.items():
         fn()
@@ -339,14 +320,13 @@ def main() -> int:
               + "".join(f" {part}_device_ms={r[part + '_device_ms']:.4f} "
                         f"{part}_device_ops={r[part + '_device_ops']:.1f} "
                         f"{part}_share={r[part + '_share']:.3f}"
-                        for part in ("neighbor_lists", "stamp_decals", "diff_pairs",
-                                     "encode_frame")
-                        if part + "_share" in r)
+                        for part in ("encode_frame",) if part + "_share" in r)
               + (f" event_log={json.dumps(r['event_log'])}" if "event_log" in r else ""),
               flush=True)
         for t in r["top"]:
             print(f"    {t['ms_per_step']:9.4f} ms/step {t['share'] * 100:5.1f}% "
                   f"x{t['calls_per_step']:.1f}  {t['name']}", flush=True)
+        print(r["spans_table"], flush=True)
         torch.cuda.empty_cache()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
