@@ -53,10 +53,14 @@ Phases, each printing one line or more before the last:
    166-188``): 15,000 boids and the mouse in 5000 x 2000 through
    ``Engine.step``, 5 + 20 frames, each building its neighbour lists (the
    cell-major form, 800 candidate slots, 6 payload channels), running the
-   batched ``Boid.tick`` and K1 once (``[boids_15k]``: steps/s, launch
-   counts, ``n_binned``, overflow, mean neighbour count, finiteness); then
-   400 boids on the card against the CPU for 5 frames
-   (``[boids_reference]``);
+   batched ``Boid.tick`` (the boid tick kernel) and K1 once
+   (``[boids_15k]``: steps/s, launch counts, ``n_binned``, overflow, mean
+   neighbour count, finiteness); then 400 boids on the card against the CPU
+   for 5 frames (``[boids_reference]``); then the boids benchmark cell's
+   scene (102,400 boids, the mouse held, 30 frames) and the boid tick on
+   its next frame's arguments against its plain version, timed beside it
+   and its two bounds, on the payload's channels and on gathered columns
+   (``[boid_tick_102k]``);
 8. the halo benchmark's boids scene (``benchmarks/halo_scaling.py:77-102``,
    ``oversub`` 1.5 as at :258): 102,400 entities on 4 slabs of the card,
    phase A building each slab's neighbour tables, for 10 frames against
@@ -247,6 +251,8 @@ CHECK_N, CHECK_WORLD = 100_000, (9000.0 * 10 ** 0.5, 4000.0 * 10 ** 0.5)
 PEAK_F32_S = 67e12
 # slice C1: BASELINE config 3, the JAX ladder's boids rung
 BOIDS_N, BOIDS_WORLD, BOIDS_WARMUP, BOIDS_FRAMES = 15_000, (5000.0, 2000.0), 5, 20
+#: the boids benchmark cell's scene (``bench_port/configs/boids_102k.json``)
+CELL_BOIDS_N, CELL_BOIDS_WORLD, CELL_BOIDS_FRAMES = 102_400, (13_064.0, 5_226.0), 30
 CONFIG3_SPATIAL = dict(cell_size=50.0, max_neighbors=400, cell_capacity=32)
 # the halo benchmark's boids scene at its default size, and its oversub
 HALO_BOIDS_N, HALO_BOIDS_WORLD, HALO_BOIDS_FRAMES = 102_400, (12_000.0, 6_000.0), 10
@@ -694,6 +700,7 @@ def zero_counts():
     ck.pair_pass_symmetric.launches = 0
     ck.pair_pass_grid.launches = 0
     ck.expand.launches = 0
+    ck.boid_tick.launches = 0
 
 
 def read_counts():
@@ -927,7 +934,7 @@ def boids_phase(dev, errs):
     eng.sync()
     dt = time.perf_counter() - t0
     k1, k2, k3 = read_counts()
-    k4 = ck.expand.launches
+    k4, ticks = ck.expand.launches, ck.boid_tick.launches
     frames = BOIDS_WARMUP + BOIDS_FRAMES
     w, m, cfg = eng.world, eng.metrics, eng.config
     nbr = neighbor_lists_of(w, cfg)
@@ -936,7 +943,8 @@ def boids_phase(dev, errs):
     overflow = int(m["solver_overflow"].item())
     log("boids_15k", boids=BOIDS_N, frames=frames, steps_per_s=BOIDS_FRAMES / dt,
         k1_launches=k1, expected_k1=frames * cfg.physics.sub_step_count, k2_launches=k2,
-        k3_launches=k3, k4_launches=k4, n_binned=n_binned, solver_overflow=overflow,
+        k3_launches=k3, k4_launches=k4, boid_tick_launches=ticks, n_binned=n_binned,
+        solver_overflow=overflow,
         scan_radius=cfg.spatial.max_cell_radius, slots=list(nbr.ids.shape),
         payload=list(nbr.payload.data.shape), symmetric=eng._plan.symmetric,
         layout=list(layout_args(eng)[0].shape),
@@ -947,6 +955,7 @@ def boids_phase(dev, errs):
     check(w.step_count == frames, "boids_15k: step_count")
     check(k1 == frames * cfg.physics.sub_step_count and k2 == 0 and k3 == 0 and k4 == 0,
           f"boids_15k: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches; expected {frames}, 0, 0, 0")
+    check(ticks == frames, f"boids_15k: the boid tick launched {ticks} times, not {frames}")
     check(n_binned in (BOIDS_N, BOIDS_N + 1), f"boids_15k: n_binned {n_binned}")
     kern, plain = ck.pair_pass_resident, ck.pair_pass_resident_plain
     args = layout_args(eng)
@@ -986,6 +995,98 @@ def boids_phase(dev, errs):
     check(err <= tol, f"boids_reference: positions differ by {err} (tol {tol})")
     check(contacts_bad == 0, "boids_reference: contact counts differ")
     return k1, timing
+
+
+def captured_tick_args(eng):
+    """The arguments ``Boid.tick`` hands ``boid_tick`` in the next frame of
+    ``eng`` (that frame is run)."""
+    from multithreadedgameengine_tpu_torch.models import boids
+
+    seen, real = [], boids.boid_tick
+
+    def capture(*args):
+        seen.append(args)
+        return real(*args)
+
+    boids.boid_tick = capture
+    try:
+        eng.step(1)
+    finally:
+        boids.boid_tick = real
+    return seen[0]
+
+
+def boid_tick_bounds(args):
+    """The least time the card could take for one boid tick, in ms: the
+    bytes it must move over the HBM rate, (a) reading every slot's id and,
+    for the live slots alone, d2 and the neighbour's five channels (24 B),
+    (b) reading every slot's id, d2 and whole 24-byte payload record; both
+    with 13 fields of each row read and 2 written. Operations (about 20 a
+    live slot) are far below either. Returns (live, full, live share)."""
+    ids = args[0]
+    n, s = ids.shape
+    live = int((ids >= 0).sum().item())
+    rows = (13 + 2) * 4 * n
+    return ((4 * n * s + 24 * live + rows) / PEAK_BYTES_S * 1e3,
+            ((4 + 4 + 24) * n * s + rows) / PEAK_BYTES_S * 1e3, live / (n * s))
+
+
+def boid_tick_phase(dev):
+    """The boid tick at the boids benchmark cell's scene: 102,400 boids and
+    the mouse held in 13,064 x 5,226 (config 3's density), ``CELL_BOIDS_FRAMES``
+    frames through ``Engine.step`` (one launch a frame), then the kernel on
+    the next frame's own arguments against its plain version (within the
+    sums' order, ``tests/test_torch_boid_tick.py``'s tolerance) and timed
+    there beside its plain version and its two bounds, and on the same
+    lists gathered into contiguous columns. Returns the timing fields."""
+    import importlib.util
+    from pathlib import Path
+
+    import torch
+
+    # the tolerance of tests/test_torch_boid_tick.py, loaded from its file
+    path = Path(__file__).resolve().parent / "tests" / "test_torch_boid_tick.py"
+    spec = importlib.util.spec_from_file_location("test_torch_boid_tick", path)
+    tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tests)
+
+    ck = kernels()
+    eng = boids_engine(dev, CELL_BOIDS_N, CELL_BOIDS_WORLD, CONFIG3_SPATIAL)
+    eng.input.set_mouse(CELL_BOIDS_WORLD[0] / 2, CELL_BOIDS_WORLD[1] / 2)
+    eng.input.mouse_button(0, True)
+    zero_counts()
+    eng.step(CELL_BOIDS_FRAMES, block=True)
+    ticks = ck.boid_tick.launches
+    check(ticks == CELL_BOIDS_FRAMES,
+          f"boid_tick_102k: {ticks} launches in {CELL_BOIDS_FRAMES} frames")
+    args = captured_tick_args(eng)
+    out = {}
+    for form in ("payload", "gathered"):
+        a = args if form == "payload" else (args[0], args[1], [c.contiguous() for c in args[2]],
+                                            *args[3:])
+        kx, ky = ck.boid_tick(*a)
+        px, py = ck.boid_tick_plain(*a)
+        torch.cuda.synchronize()
+        tx, ty = tests.order_tolerance(a)
+        err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+        within = bool(((kx.double() - px.double()).abs() <= tx).all().item()
+                      and ((ky.double() - py.double()).abs() <= ty).all().item())
+        check(within, f"boid_tick_102k ({form}): the kernel differs from its plain version "
+                      f"beyond the sums' order ({err})")
+        ms, plain_ms = time_kernel(ck.boid_tick, ck.boid_tick_plain, a, kernel_reps=50,
+                                   plain_reps=3)
+        out[form] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    live_ms, full_ms, fill = boid_tick_bounds(args)
+    log("boid_tick_102k", boids=CELL_BOIDS_N, frames=CELL_BOIDS_FRAMES, launches=ticks,
+        slots=list(args[0].shape), payload_stride=list(args[2][0].stride()), live_share=fill,
+        ms=out["payload"]["ms"], plain_ms=out["payload"]["plain_ms"],
+        gathered_ms=out["gathered"]["ms"], bound_live_ms=live_ms, bound_full_ms=full_ms,
+        live_roofline=live_ms / out["payload"]["ms"], max_abs_err=out["payload"]["max_abs_err"],
+        gathered_max_abs_err=out["gathered"]["max_abs_err"])
+    return dict(ms=out["payload"]["ms"], plain_ms=out["payload"]["plain_ms"],
+                gathered_ms=out["gathered"]["ms"], bound=(live_ms, "bytes"),
+                bound_full_ms=full_ms, live_share=fill, shape=list(args[0].shape),
+                max_abs_err=max(o["max_abs_err"] for o in out.values()))
 
 
 def predators_engine(dev, **kw):
@@ -3176,8 +3277,11 @@ def main() -> int:
     halo = halo_phase(dev, inproc)
     errs["K3"] = halo["errs"]
 
-    # 7. slice C1's main path: BASELINE config 3, then the card against the CPU
+    # 7. slice C1's main path: BASELINE config 3, then the card against the
+    # CPU; the boid tick at the benchmark cell's scene
     k1_boids, k1_boids_timing = boids_phase(dev, errs)
+    tick = boid_tick_phase(dev)
+    errs["boid_tick"] = [tick["max_abs_err"]]
 
     # 8. the halo step's boids scene
     k3_boids, k3_boids_timing = halo_boids_phase(dev, errs, inproc)
@@ -3277,6 +3381,11 @@ def main() -> int:
               "benchmarks/probe_expand_kernel.py:74", k4["launches"], k4["ms"],
               k4["plain_ms"], k4["bound"], {"shape": k4["shape"]},
               library_ms=k4["library_ms"]),
+        entry("boid_tick", ck.boid_tick, "multithreadedgameengine_tpu_torch/csrc/boid_tick.cu",
+              "none (the JAX package's tick is XLA)", CELL_BOIDS_FRAMES, tick["ms"],
+              tick["plain_ms"], tick["bound"],
+              {"shape": tick["shape"], "gathered_ms": tick["gathered_ms"],
+               "bound_full_ms": tick["bound_full_ms"], "live_share": tick["live_share"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -64,7 +64,7 @@ SEED = 123456
 #: the reference's rung sizes before rounding to the mesh
 HALO_BOIDS, MIXED, HOMED_BOIDS, SHARDED_PER_RANK = 102_400, 2048, 4096, 32
 KERNELS = (("K1", ck.pair_pass_resident), ("K2", ck.pair_pass_symmetric),
-           ("K3", ck.pair_pass_grid))
+           ("K3", ck.pair_pass_grid), ("boid_tick", ck.boid_tick))
 
 
 # ---------------------------------------------------------------------------

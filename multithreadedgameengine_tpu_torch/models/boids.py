@@ -7,7 +7,9 @@ per entity under ``vmap``, the port writes them for the class slice: the
 neighbour columns are ``[count, S]``, every reduction runs along dim 1, and
 an entity's own fields meet them as ``[count, 1]``. :func:`flocking_forces`
 returns a :class:`FlockAux` with the per-slot intermediates so subclasses
-run their own reductions over the same pass.
+(``models.predators``' Prey and Predator) run their own reductions over the
+same pass. ``Boid.tick`` keeps none: it is one ``ops.cuda_kernels.boid_tick``,
+which on the card reads each live neighbour slot once.
 
 BASELINE config 3 is this class alone: ``benchmarks/run_ladder.py:166-188``
 builds the scene inline (15,000 boids in 5000 x 2000), as does
@@ -29,22 +31,17 @@ from ..components import (
     SpriteRenderer,
     define_component,
 )
+from ..ops.cuda_kernels import BOID_MOUSE, boid_tick
+
+#: the Flocking component's fields, in the order ``boid_tick`` takes them
+FLOCKING_FIELDS = ("protected_range", "centering_factor", "avoid_factor",
+                   "matching_factor", "turn_factor", "margin")
 
 # demos/predators/Flocking.js:353-363: a user component
-Flocking = define_component(
-    "Flocking",
-    dict(
-        protected_range="f32",
-        centering_factor="f32",
-        avoid_factor="f32",
-        matching_factor="f32",
-        turn_factor="f32",
-        margin="f32",
-    ),
-)
+Flocking = define_component("Flocking", {f: "f32" for f in FLOCKING_FIELDS})
 
-MOUSE_ENTITY_TYPE = 0  # Mouse registers first (gameEngine.js:278-281)
-MOUSE_ENTITY_INDEX = 0
+MOUSE_ENTITY_TYPE = BOID_MOUSE  # Mouse registers first (gameEngine.js:278-281)
+MOUSE_ENTITY_INDEX = BOID_MOUSE
 
 
 @dataclass
@@ -204,11 +201,19 @@ class Boid(EntityClass):
 
     @staticmethod
     def tick(ctx: TickCtx):
-        """boid.js:116-125."""
-        fx, fy, _aux = flocking_forces(ctx)
-        mx, my = avoid_mouse_force(ctx)
-        bx, by = keep_within_bounds_force(ctx)
-        return {
-            "rigid_body.ax": ctx.ax + fx + mx + bx,
-            "rigid_body.ay": ctx.ay + fy + my + by,
-        }
+        """boid.js:116-125: ``ax`` plus :func:`flocking_forces`,
+        :func:`avoid_mouse_force` and :func:`keep_within_bounds_force`, as
+        one ``ops.cuda_kernels.boid_tick`` (one kernel on the card, its
+        plain version on the CPU). The neighbour columns are payload
+        channels or gathers; the type column is f32 as the payload holds it."""
+        cols = [ctx.neighbor_col(p) for p in Boid.neighbor_fields]
+        cols[4] = cols[4].to(torch.float32)
+        w = ctx.world
+        ax, ay = boid_tick(
+            ctx.neighbor_ids, ctx.neighbor_d2, cols,
+            (ctx.x, ctx.y, ctx.vx, ctx.vy, ctx.ax, ctx.ay, ctx.entity_type),
+            [ctx.field(f"flocking.{f}") for f in FLOCKING_FIELDS],
+            (ctx.mouse_down, ctx.inputs.mouse_x, w.transform.x[MOUSE_ENTITY_INDEX],
+             w.transform.y[MOUSE_ENTITY_INDEX]),
+            ctx.dt_ratio, (ctx.config.world_width, ctx.config.world_height))
+        return {"rigid_body.ax": ax, "rigid_body.ay": ay}

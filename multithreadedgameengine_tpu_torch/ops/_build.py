@@ -41,6 +41,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 #: the C functions of each source: (name, argument types, result type); the
 #: launch comes first
 ENTRY_POINTS = {
+    "boid_tick.cu": (
+        ("boid_tick_launch", [_P, _P, _I, _I, _F, _F, _F, _P], _I),
+    ),
     "expand.cu": (
         ("expand_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
         ("expand_plan", [_I, _P], _I),

@@ -36,6 +36,11 @@ stages a tile of both outputs in shared memory, zeroes it, writes the
 tile's entities into it and stores it once (:func:`expand_plan` gives the
 tile and the grid).
 
+The boid tick replaces no TPU kernel (the JAX package writes the tick in
+XLA): :func:`boid_tick`, source ``csrc/boid_tick.cu``, gives ``Boid.tick``'s
+new accelerations in one pass over each row's neighbour slots, one warp a
+row, loading d2 and the payload only for live slots.
+
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
 
@@ -618,3 +623,148 @@ def expand_plan(total: int) -> dict:
     if err != 0:
         raise RuntimeError(f"expand: no plan for {total} slots (CUDA error {err})")
     return dict(tile_slots=plan[0], blocks=plan[1], threads=plan[2], smem_bytes=plan[3])
+
+
+#: the mouse's entity type and its row (``models.boids``: the Mouse class
+#: registers first and spawns at row 0)
+BOID_MOUSE = 0
+
+
+def _check_boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse) -> None:
+    if ids.dim() != 2:
+        raise ValueError(f"ids must be [count, slots], got {tuple(ids.shape)}")
+    count = ids.shape[0]
+    dev = ids.device
+    if len(cols) != 5 or len(own) != 7 or len(flock) != 6 or len(mouse) != 4:
+        raise ValueError("boid_tick takes 5 neighbour columns, 7 own fields, 6 flocking "
+                         "fields and 4 mouse inputs")
+    checks = [("ids", ids, torch.int32, tuple(ids.shape), True),
+              ("d2", d2, torch.float32, tuple(ids.shape), True)]
+    checks += [(f"column {k}", c, torch.float32, tuple(ids.shape), False)
+               for k, c in enumerate(cols)]
+    checks += [(f"own field {k}", t, torch.int32 if k == 6 else torch.float32, (count,), True)
+               for k, t in enumerate(own)]
+    checks += [(f"flocking field {k}", t, torch.float32, (count,), True)
+               for k, t in enumerate(flock)]
+    checks += [(name, t, dtype, (), False) for name, t, dtype in zip(
+        ("mouse_down", "mouse_x", "mouse row x", "mouse row y"), mouse,
+        (torch.bool, torch.float32, torch.float32, torch.float32))]
+    for name, t, dtype, shape, contiguous in checks:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, ids on {dev}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if count >= 2**31:
+        raise ValueError("too many rows for int32 kernel arguments")
+
+
+def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
+                    extent) -> Tuple[Tensor, Tensor]:
+    """``Boid.tick`` in plain PyTorch: ``ax + flocking + mouse + margin``
+    for x and y, with ``models.boids``' ``flocking_forces``,
+    ``avoid_mouse_force`` and ``keep_within_bounds_force`` (boid.js:116-341)
+    restated on tensors, operation for operation.
+
+    ``ids`` int32 and ``d2`` f32 ``[count, S]`` (-1 in an empty slot);
+    ``cols``: the neighbours' x, y, vx, vy and entity type, f32 ``[count,
+    S]`` each, of any strides (payload channel views or gathered columns);
+    ``own``: the row's x, y, vx, vy, ax, ay (f32) and entity type (int32),
+    ``[count]`` each; ``flock``: its ``flocking.`` protected_range,
+    centering_factor, avoid_factor, matching_factor, turn_factor and margin,
+    f32 ``[count]``; ``mouse``: 0-dim tensors, mouse button 0 (bool),
+    ``inputs.mouse_x`` and world row 0's x and y; ``extent``: (world width,
+    world height). Returns the new ``rigid_body.ax`` and ``rigid_body.ay``."""
+    _check_boid_tick(ids, d2, cols, own, flock, mouse)
+    nx, ny, nvx, nvy, ntype_col = cols
+    x, y, vx, vy, ax, ay, entity_type = own
+    protected_range, centering, avoid, matching, turn_factor, margin = flock
+    mouse_down, mouse_x, mouse_px, mouse_py = mouse
+    dt = dt_ratio
+
+    # flocking_forces (boid.js:137-240)
+    live = ids >= 0
+    ntype = ntype_col.to(torch.int32)
+    not_mouse = live & (ntype != BOID_MOUSE)
+    dx = nx - x[:, None]
+    dy = ny - y[:, None]
+    prot2 = (protected_range * protected_range)[:, None]
+    sep = not_mouse & (d2 < prot2) & (d2 > 0)
+    inv_d2 = torch.where(sep, 1.0 / torch.where(d2 > 0, d2, 1.0), 0.0)
+    separate_x = torch.sum(torch.where(sep, -dx * inv_d2, 0.0), dim=1)
+    separate_y = torch.sum(torch.where(sep, -dy * inv_d2, 0.0), dim=1)
+    same = not_mouse & ~sep & (ntype == entity_type[:, None])
+    same_n = torch.sum(same, dim=1, dtype=torch.int32)
+    center_x = torch.sum(torch.where(same, nx, 0.0), dim=1)
+    center_y = torch.sum(torch.where(same, ny, 0.0), dim=1)
+    avg_vx = torch.sum(torch.where(same, nvx, 0.0), dim=1)
+    avg_vy = torch.sum(torch.where(same, nvy, 0.0), dim=1)
+    has_same = same_n > 0
+    inv_n = torch.where(has_same, 1.0 / torch.clamp(same_n, min=1).to(torch.float32), 0.0)
+    fx = torch.where(has_same, (center_x * inv_n - x) * centering * dt, 0.0)
+    fy = torch.where(has_same, (center_y * inv_n - y) * centering * dt, 0.0)
+    fx = fx + torch.where(has_same, (avg_vx * inv_n - vx) * matching * dt, 0.0)
+    fy = fy + torch.where(has_same, (avg_vy * inv_n - vy) * matching * dt, 0.0)
+    fx = fx + separate_x * avoid * dt
+    fy = fy + separate_y * avoid * dt
+
+    # avoid_mouse_force (boid.js:281-316)
+    slot = live & (ids == BOID_MOUSE)
+    present = torch.any(slot, dim=1)
+    md2 = torch.sum(torch.where(slot, d2, 0.0), dim=1)
+    engaged = mouse_down & (mouse_x != 0) & present & (md2 > 0)
+    mdx = mouse_px - x
+    mdy = mouse_py - y
+    safe_d2 = torch.where(md2 > 0, md2, 1.0)
+    mx = torch.where(engaged, -(mdx / safe_d2) * 1000.0 * dt, 0.0)
+    my = torch.where(engaged, -(mdy / safe_d2) * 1000.0 * dt, 0.0)
+
+    # keep_within_bounds_force (boid.js:322-341)
+    turn = turn_factor * dt
+    ww, wh = extent
+    bx = torch.where(x < margin, turn, 0.0) - torch.where(x > ww - margin, turn, 0.0)
+    by = torch.where(y < margin, turn, 0.0) - torch.where(y > wh - margin, turn, 0.0)
+    return ax + fx + mx + bx, ay + fy + my + by
+
+
+def boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
+              extent) -> Tuple[Tensor, Tensor]:
+    """One boid tick (see :func:`boid_tick_plain` for the contract). CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream, reading the mouse inputs through device pointers (no
+    host read), and raise if the launch is refused. The kernel sums each
+    row's terms in another order than ``torch.sum``; every other operation
+    is the plain version's."""
+    _check_boid_tick(ids, d2, cols, own, flock, mouse)
+    if ids.device.type == "cpu":
+        return boid_tick_plain(ids, d2, cols, own, flock, mouse, dt_ratio, extent)
+    if ids.device.type != "cuda":
+        raise ValueError(f"boid_tick runs on cpu or cuda, not {ids.device}")
+    import ctypes
+
+    from . import _build
+
+    lib = _build.load()
+    count, slots = ids.shape
+    out_ax = torch.empty((count,), dtype=torch.float32, device=ids.device)
+    out_ay = torch.empty_like(out_ax)
+    if count == 0:
+        return out_ax, out_ay
+    tensors = (ids, d2, *cols, *own, *flock, *mouse, out_ax, out_ay)
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    strides = (ctypes.c_longlong * 10)(*(c.stride(0) for c in cols),
+                                       *(c.stride(1) for c in cols))
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = lib.boid_tick_launch(ptrs, strides, count, slots, float(dt_ratio),
+                                   float(extent[0]), float(extent[1]), stream)
+    if err != 0:
+        raise RuntimeError(f"boid_tick: CUDA launch failed with error {err}")
+    boid_tick.launches += 1
+    return out_ax, out_ay
+
+
+boid_tick.launches = 0

@@ -493,16 +493,19 @@ def boids_scene(device, n=400, world=(1200.0, 800.0)):
 
 def test_boids_on_card_match_cpu(cuda):
     """BASELINE config 3's knobs, 400 boids, 5 frames on the card against
-    the CPU. The ticks' neighbour sums (torch.sum over the slots) run in
-    another order on the card, so positions agree within 8 ulps at the
-    world's extent; integer state is exact, and the neighbour lists of one
-    world are the same on both."""
+    the CPU. The ticks' neighbour sums (the boid tick kernel's on the card,
+    torch.sum's on the CPU) run in another order on the card, so positions
+    agree within 8 ulps at the world's extent; integer state is exact, and
+    the neighbour lists of one world are the same on both. On the card the
+    tick is the kernel, one launch a frame."""
     from multithreadedgameengine_tpu_torch.ops.spatial import neighbor_lists
 
     snaps = []
     for device in (cuda, "cpu"):
         eng = boids_scene(device)
+        before = cuda_kernels.boid_tick.launches
         eng.step(5)
+        assert cuda_kernels.boid_tick.launches == before + (5 if device == cuda else 0)
         assert int(eng.metrics["n_binned"]) == 400
         snaps.append(eng.snapshot())
     a, b = snaps

@@ -301,6 +301,7 @@ def test_dryrun_multichip_runs_every_rung():
             assert all(r["replicated"] == reps[0]["replicated"] for r in reps), reps[0]["cell"]
     assert reports[1][0]["metrics"]["n_binned"] == 102_400
     assert reports[3][0]["step_count"] == 4
-    # every rank's K-launches reach rank 0 (none on the CPU)
-    assert reports[1][0]["launches_by_rank"] == {k: [0] * D for k in ("K1", "K2", "K3")}
+    # every rank's kernel launches reach rank 0 (none on the CPU)
+    assert reports[1][0]["launches_by_rank"] == {
+        k: [0] * D for k in ("K1", "K2", "K3", "boid_tick")}
     assert reports[1][1]["launches_by_rank"] is None
