@@ -48,6 +48,7 @@ from .components import (
 from .config import EngineConfig
 from .inputs import InputState, key_index
 from .ops.spatial import NeighborLists
+from .profiling import span
 from .state import World
 
 
@@ -431,7 +432,8 @@ def run_logic_phase(
     writes are applied after all classes ran, as in the reference. A tick's
     ``"despawn"`` key clears the entity's active flags. Returns (world,
     emissions): one request block per class whose tick returned ``"emit"``,
-    in registration order."""
+    in registration order. Each class's tick runs inside the span
+    ``behavior.<class name>``."""
     writes: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
     emissions: List[Dict[str, Any]] = []
     despawn = None
@@ -459,7 +461,8 @@ def run_logic_phase(
                       neighbor_payload=payload if payload.shape[-1] > 0 else None,
                       payload_channels=payload_channels,
                       self_view=_entity_view(world, start, count))
-        outs = tick_fn(ctx) or {}
+        with span(f"behavior.{klass.__name__}"):
+            outs = tick_fn(ctx) or {}
         active_slice = world.transform.active[start:start + count]
 
         for path, value in outs.items():

@@ -1769,14 +1769,16 @@ class Engine:
             dropped = torch.zeros((), dtype=torch.int32, device=self.device)
             for f in range(k):
                 world, metrics = self._one_step(world, inputs)
-                dropped = dropped + log.write(world, f)
+                with span("engine.event_log"):
+                    dropped = dropped + log.write(world, f)
                 # rows past the log's cap never reach a hook: counted over
                 # the chunk
                 metrics["event_rows_dropped"] = dropped
             self.world, self.metrics = world, metrics
             if not has_hooks:
                 continue
-            log.fetch()
+            with span("engine.event_log"):
+                log.fetch()
             if overlap:
                 if pending is not None:
                     self._dispatch_logged_events(pending)

@@ -92,19 +92,17 @@ class Prey(Boid):
     def setup(cls, ctx):
         """prey.js:25-61: per-instance randomized physics and perception;
         each slot draws maxVel, maxAcc, visualRange from the seeded stream
-        in instance order (the reference runs setup() once per instance)."""
-        max_vel, max_acc, vrange = [], [], []
-        for _ in range(ctx.count):
-            max_vel.append(1.5 + ctx.rng() * 2.0)
-            max_acc.append(0.07 + ctx.rng() * 0.1)
-            vrange.append(60.0 + ctx.rng() * 100.0)
+        in instance order (the reference runs setup() once per instance):
+        one ``rng.draw`` of three draws an instance, the numbers ``3 *
+        count`` calls of ``rng()`` give."""
+        d = ctx.rng.draw(3 * ctx.count).reshape(ctx.count, 3)
         return {
-            "rigid_body.max_vel": np.asarray(max_vel, np.float32),
-            "rigid_body.max_acc": np.asarray(max_acc, np.float32),
+            "rigid_body.max_vel": (1.5 + d[:, 0] * 2.0).astype(np.float32),
+            "rigid_body.max_acc": (0.07 + d[:, 1] * 0.1).astype(np.float32),
             "rigid_body.min_speed": 0.0,
             "rigid_body.friction": 0.05,
             "collider.radius": 10.0,
-            "collider.visual_range": np.asarray(vrange, np.float32),
+            "collider.visual_range": (60.0 + d[:, 2] * 100.0).astype(np.float32),
             "sprite.animation_speed": 0.15,
             "sprite.anchor_x": 0.5,
             "sprite.anchor_y": 1.0,

@@ -27,6 +27,7 @@ import torch
 
 from ..components import Struct
 from ..config import EngineConfig
+from ..profiling import span
 
 
 @dataclass(frozen=True)
@@ -311,10 +312,11 @@ def neighbor_lists_by_class(x, y, active, visual_range, cfg: EngineConfig, extra
     out = {}
     for name, start, count, r in ranges:
         sl = slice(start, start + count)
-        flat = nbh_by_r[r][bins.cell_id[sl].to(torch.int64)]
-        out[name] = accept_candidates(flat, x[sl], y[sl], arange_n[sl], visual_range[sl],
-                                      valid_entity[sl], cfg.spatial.max_neighbors,
-                                      bins.n_binned)
+        with span(f"spatial.{name}"):
+            flat = nbh_by_r[r][bins.cell_id[sl].to(torch.int64)]
+            out[name] = accept_candidates(flat, x[sl], y[sl], arange_n[sl], visual_range[sl],
+                                          valid_entity[sl], cfg.spatial.max_neighbors,
+                                          bins.n_binned)
     return out, bins.n_binned
 
 

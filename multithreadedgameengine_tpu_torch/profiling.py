@@ -22,13 +22,17 @@ costs one check. The engine opens, nested as listed:
 - ``engine.prepare``: the plan build, the queued writes and emissions
   landing, the input snapshot;
 - in each frame: ``ops.spatial`` (the neighbour lists and the payload
-  reads), ``behavior`` (the ticks), ``render.animation``, ``ops.physics``
+  reads; per-class lists open ``spatial.<class name>`` around each class's
+  gather and acceptance), ``behavior`` (the ticks, each class's inside
+  ``behavior.<class name>``), ``render.animation``, ``ops.physics``
   (the move, the solver, the derived properties), ``ops.events`` (the pair
   rows, the recording and the Enter/Stay/Exit difference; events on
   only), ``ops.particles`` with ``ops.decals`` inside it, ``ops.culling``
   (visibility and screen events), ``ops.lighting`` (shadow sprites),
   ``engine.metrics``;
 - ``ops.physics.lazy``: a lazy-chunk frame;
+- ``engine.event_log``: the chunked event log's write after each frame,
+  and its copy to the host after the chunk;
 - ``engine.dispatch_events``: the hooks fired after a frame or a chunk.
 
 The slab, homed, sharded and process-mesh steps (``parallel``) and the

@@ -146,7 +146,8 @@ def test_boids_step_opens_each_span_once_a_frame():
     eng.step(1)  # the plan
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step(2)
-    want = {"engine.step": 1, "engine.step>engine.prepare": 1}
+    want = {"engine.step": 1, "engine.step>engine.prepare": 1,
+            "engine.step>behavior>behavior.Boid": 2}
     want.update({f"engine.step>{name}": 2 for name in FRAME_SPANS})
     assert span_paths(prof) == want
 
