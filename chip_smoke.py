@@ -88,7 +88,13 @@ Phases, each printing one line or more before the last:
    decal loop alone on that run's stamp batch (``[stamp_decals]``); K1
    against its plain version on the scene's layout and timed there; then
    400 prey on the card against the same scene on the CPU for 6 frames with
-   a landing burst (``[predators_reference]``);
+   a landing burst (``[predators_reference]``); then the prey tick (the boid
+   tick kernel's flee instantiation, one launch a frame of ``Prey.tick``,
+   the boid tick none) on the scene's next frame's arguments and on the
+   mixed benchmark cell's ``[1000000, 576]`` slots of 7 payload channels
+   (``tests/test_torch_prey_tick.py``'s ``cell_args``), each as payload
+   views and as gathered columns, against its plain version within the
+   sums' order and timed beside it and its two bounds (``[prey_tick]``);
 11. slice C3's main path, BASELINE config 4 with events on as the JAX
    ladder's ``rung_predators`` runs it (``benchmarks/run_ladder.py:
    199-240``: ``logic.collision_events``, ``event_chunk`` 60,
@@ -701,6 +707,7 @@ def zero_counts():
     ck.pair_pass_grid.launches = 0
     ck.expand.launches = 0
     ck.boid_tick.launches = 0
+    ck.prey_tick.launches = 0
 
 
 def read_counts():
@@ -997,38 +1004,54 @@ def boids_phase(dev, errs):
     return k1, timing
 
 
-def captured_tick_args(eng):
-    """The arguments ``Boid.tick`` hands ``boid_tick`` in the next frame of
-    ``eng`` (that frame is run)."""
-    from multithreadedgameengine_tpu_torch.models import boids
+def captured_tick_args(eng, kernel="boid_tick"):
+    """The arguments the model hands ``kernel`` in the next frame of
+    ``eng`` (that frame is run): ``Boid.tick``'s to ``boid_tick``, or
+    ``Prey.tick``'s to ``prey_tick``."""
+    from multithreadedgameengine_tpu_torch.models import boids, predators
 
-    seen, real = [], boids.boid_tick
+    module = boids if kernel == "boid_tick" else predators
+    seen, real = [], getattr(module, kernel)
 
     def capture(*args):
         seen.append(args)
         return real(*args)
 
-    boids.boid_tick = capture
+    setattr(module, kernel, capture)
     try:
         eng.step(1)
     finally:
-        boids.boid_tick = real
+        setattr(module, kernel, real)
     return seen[0]
 
 
-def boid_tick_bounds(args):
+def test_module(name):
+    """``tests/<name>.py`` imported as a module (its tolerances and inputs),
+    the tests directory put on the path for the modules it imports."""
+    import importlib
+    from pathlib import Path
+
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    return importlib.import_module(name)
+
+
+def boid_tick_bounds(args, row_fields=13, payload_bytes=24):
     """The least time the card could take for one boid tick, in ms: the
     bytes it must move over the HBM rate, (a) reading every slot's id and,
     for the live slots alone, d2 and the neighbour's five channels (24 B),
-    (b) reading every slot's id, d2 and whole 24-byte payload record; both
-    with 13 fields of each row read and 2 written. Operations (about 20 a
-    live slot) are far below either. Returns (live, full, live share)."""
+    (b) reading every slot's id, d2 and whole payload record
+    (``payload_bytes``); both with ``row_fields`` fields of each row read
+    (13; the prey tick's 14 add its flee factor) and 2 written. Operations
+    (about 20 a live slot) are far below either. Returns (live, full, live
+    share)."""
     ids = args[0]
     n, s = ids.shape
     live = int((ids >= 0).sum().item())
-    rows = (13 + 2) * 4 * n
+    rows = (row_fields + 2) * 4 * n
     return ((4 * n * s + 24 * live + rows) / PEAK_BYTES_S * 1e3,
-            ((4 + 4 + 24) * n * s + rows) / PEAK_BYTES_S * 1e3, live / (n * s))
+            ((4 + 4 + payload_bytes) * n * s + rows) / PEAK_BYTES_S * 1e3, live / (n * s))
 
 
 def boid_tick_phase(dev):
@@ -1039,17 +1062,9 @@ def boid_tick_phase(dev):
     sums' order, ``tests/test_torch_boid_tick.py``'s tolerance) and timed
     there beside its plain version and its two bounds, and on the same
     lists gathered into contiguous columns. Returns the timing fields."""
-    import importlib.util
-    from pathlib import Path
-
     import torch
 
-    # the tolerance of tests/test_torch_boid_tick.py, loaded from its file
-    path = Path(__file__).resolve().parent / "tests" / "test_torch_boid_tick.py"
-    spec = importlib.util.spec_from_file_location("test_torch_boid_tick", path)
-    tests = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tests)
-
+    tests = test_module("test_torch_boid_tick")  # its summing-order tolerance
     ck = kernels()
     eng = boids_engine(dev, CELL_BOIDS_N, CELL_BOIDS_WORLD, CONFIG3_SPATIAL)
     eng.input.set_mouse(CELL_BOIDS_WORLD[0] / 2, CELL_BOIDS_WORLD[1] / 2)
@@ -1162,7 +1177,7 @@ def predators_phase(dev, errs):
     eng.sync()
     dt = time.perf_counter() - t0
     k1, k2, k3 = read_counts()
-    k4 = ck.expand.launches
+    k4, prey_ticks = ck.expand.launches, ck.prey_tick.launches
     frames = PRED_WARMUP + PRED_FRAMES
     w, m, cfg, plan = eng.world, eng.metrics, eng.config, eng._plan
     subs = cfg.physics.sub_step_count
@@ -1178,9 +1193,10 @@ def predators_phase(dev, errs):
     log("predators_15k", card=repr(card_name_and_limit()), entities=w.n_entities,
         frames=frames, steps_per_s=PRED_FRAMES / dt, build_s=build_s, k1_launches=k1,
         expected_k1=frames * subs, k2_launches=k2, k3_launches=k3, k4_launches=k4,
-        n_binned=n_binned, active_count=active, solver_overflow=overflow,
-        shadow_sprites=shadows, shadow_cap=n_lights * lc.max_shadows_per_light,
-        scan_radius=sp.max_cell_radius, slots=slots, payload_channels=channels,
+        prey_tick_launches=prey_ticks, n_binned=n_binned, active_count=active,
+        solver_overflow=overflow, shadow_sprites=shadows,
+        shadow_cap=n_lights * lc.max_shadows_per_light, scan_radius=sp.max_cell_radius,
+        slots=slots, payload_channels=channels,
         assembly="cell-major" if cellmajor else "per-entity gather",
         rows_mb=w.n_entities * slots * channels * 4 / 1e6, symmetric=plan.symmetric,
         layout=list(layout_args(eng)[0].shape), solver_geom=plan.solver_geom,
@@ -1190,6 +1206,8 @@ def predators_phase(dev, errs):
     check(w.step_count == frames, "predators_15k: step_count")
     check(k1 == frames * subs and k2 == 0 and k3 == 0 and k4 == 0,
           f"predators_15k: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches; expected {frames}, 0, 0, 0")
+    check(prey_ticks == frames, f"predators_15k: {prey_ticks} prey tick launches in {frames} "
+                                "frames")
     check(overflow == 0, f"predators_15k: solver_overflow {overflow}")
     check(n_binned == active, f"predators_15k: n_binned {n_binned} of {active} active")
     check(0 < shadows <= n_lights * lc.max_shadows_per_light,
@@ -1300,6 +1318,91 @@ def predators_reference(dev):
           f"predators_reference: shadow sprites differ: {sh_ulps}")
     check(bool((b.decal_canvas[..., 3] > 0).any()) and int(on.sum().item()) > 0,
           "predators_reference: nothing stamped or no shadow cast")
+
+
+def prey_tick_case(name, args, factor, ptype, tolerance, reps):
+    """The prey tick on ``args`` against its plain version, within the
+    sums' order (``tolerance``), and timed beside it. Returns its fields."""
+    import torch
+
+    ck = kernels()
+    a = (*args, factor, ptype)
+    kx, ky = ck.prey_tick(*a)
+    px, py = ck.prey_tick_plain(*a)
+    torch.cuda.synchronize()
+    tx, ty = tolerance(args, factor, ptype)
+    err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+    within = bool(((kx.double() - px.double()).abs() <= tx).all().item()
+                  and ((ky.double() - py.double()).abs() <= ty).all().item())
+    check(within, f"prey_tick ({name}): the kernel differs from its plain version "
+                  f"beyond the sums' order ({err})")
+    del kx, ky, px, py, tx, ty
+    ms, plain_ms = time_kernel(ck.prey_tick, ck.prey_tick_plain, a, kernel_reps=reps,
+                               plain_reps=2)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+
+
+def prey_tick_phase(dev):
+    """The prey tick: one launch a frame of ``Prey.tick`` over
+    ``PRED_WARMUP`` frames of BASELINE config 4 (the boid tick none), then
+    the kernel on the next frame's own arguments and on the mixed benchmark
+    cell's ``[1000000, 576]`` slots of 7 payload channels
+    (``tests/test_torch_prey_tick.py``'s ``cell_args``: 9.4% live, 2%
+    predators), each as payload channel views and as gathered columns,
+    against its plain version within the sums' order (the test file's
+    tolerance) and timed beside it and its two bounds. Returns the timing
+    fields, the mixed cell's first."""
+    import torch
+
+    from multithreadedgameengine_tpu_torch.models.predators import Predator
+
+    tests = test_module("test_torch_prey_tick")
+    ck = kernels()
+    eng = predators_engine(dev)
+    zero_counts()
+    eng.step(PRED_WARMUP, block=True)
+    ticks, boid_ticks = ck.prey_tick.launches, ck.boid_tick.launches
+    check(ticks == PRED_WARMUP and boid_ticks == 0,
+          f"prey_tick: {ticks} prey and {boid_ticks} boid tick launches in {PRED_WARMUP} frames")
+    captured = captured_tick_args(eng, "prey_tick")
+    check(ck.prey_tick.launches == PRED_WARMUP + 1, "prey_tick: the captured frame's launch")
+    del eng
+    torch.cuda.empty_cache()
+    cell_args, cell_factor = tests.cell_args(dev)
+    scenes = (("predators_15k", captured[:8], captured[8], captured[9], 200),
+              ("mixed_1m", cell_args, cell_factor, int(Predator.entity_type), 20))
+    out = {}
+    for scene, args, factor, ptype, reps in scenes:
+        live_ms, full_ms, fill = boid_tick_bounds(args, row_fields=14,
+                                                  payload_bytes=4 * max(args[2][0].stride(1), 5))
+        for form in ("payload", "gathered"):
+            a = args if form == "payload" else (
+                args[0], args[1], [c.contiguous() for c in args[2]], *args[3:])
+            out[scene, form] = prey_tick_case(f"{scene}, {form}", a, factor, ptype,
+                                              tests.order_tolerance, reps)
+            del a
+            torch.cuda.empty_cache()
+        p, g = out[scene, "payload"], out[scene, "gathered"]
+        out[scene] = dict(shape=list(args[0].shape), payload_stride=list(args[2][0].stride()),
+                          live_share=fill, ms=p["ms"], plain_ms=p["plain_ms"],
+                          gathered_ms=g["ms"], gathered_plain_ms=g["plain_ms"],
+                          bound_live_ms=live_ms, bound_full_ms=full_ms,
+                          live_roofline=live_ms / p["ms"],
+                          max_abs_err=max(p["max_abs_err"], g["max_abs_err"]))
+        log("prey_tick", scene=scene, launches=ticks, frames=PRED_WARMUP, **out[scene])
+    del cell_args, cell_factor, captured
+    torch.cuda.empty_cache()
+    cell, pred = out["mixed_1m"], out["predators_15k"]
+    return dict(launches=ticks, ms=cell["ms"], plain_ms=cell["plain_ms"],
+                bound=(cell["bound_live_ms"], "bytes"), max_abs_err=max(
+                    cell["max_abs_err"], pred["max_abs_err"]),
+                extra={"shape": cell["shape"], "gathered_ms": cell["gathered_ms"],
+                       "bound_full_ms": cell["bound_full_ms"], "live_share": cell["live_share"],
+                       "shape_predators_15k": pred["shape"], "ms_predators_15k": pred["ms"],
+                       "plain_ms_predators_15k": pred["plain_ms"],
+                       "gathered_ms_predators_15k": pred["gathered_ms"],
+                       "bound_ms_predators_15k": pred["bound_live_ms"],
+                       "live_share_predators_15k": pred["live_share"]})
 
 
 def no_host_reads(fn):
@@ -3292,6 +3395,8 @@ def main() -> int:
 
     # 10. slice C2's main path: BASELINE config 4, then the card against the CPU
     k1_pred, k1_pred_timing = predators_phase(dev, errs)
+    prey = prey_tick_phase(dev)
+    errs["prey_tick"] = [prey["max_abs_err"]]
 
     # 11. slice C3's main path: config 4 with events, then the card against
     # the CPU and the chunked log against frame-by-frame dispatch
@@ -3386,6 +3491,9 @@ def main() -> int:
               tick["plain_ms"], tick["bound"],
               {"shape": tick["shape"], "gathered_ms": tick["gathered_ms"],
                "bound_full_ms": tick["bound_full_ms"], "live_share": tick["live_share"]}),
+        entry("prey_tick", ck.prey_tick, "multithreadedgameengine_tpu_torch/csrc/boid_tick.cu",
+              "none (the JAX package's tick is XLA)", prey["launches"], prey["ms"],
+              prey["plain_ms"], prey["bound"], prey["extra"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

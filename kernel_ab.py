@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the tiled pair passes K1, K2 and K3 and of the expand placement
-K4 against other versions of their sources, on one NVIDIA GPU.
+"""A/B of the tiled pair passes K1, K2 and K3, of the expand placement K4
+and of the boid tick against other versions of their sources, on one
+NVIDIA GPU.
 
     python3 kernel_ab.py --old DIR [DIR ...] [--ablate DIR ...] [--out build/kernel_ab.json]
 
 Each ``DIR`` holds another version of some of ``pair_pass_resident.cu``,
-``pair_pass_grid.cu``, ``pair_pass_symmetric.cu`` and ``expand.cu`` (and
-any header they include), for example taken out of git with ``git show
+``pair_pass_grid.cu``, ``pair_pass_symmetric.cu``, ``expand.cu`` and
+``boid_tick.cu`` (and any header they include), for example taken out of git with ``git show
 <commit>:multithreadedgameengine_tpu_torch/csrc/expand.cu``; their C launch
 functions must take the current ones' arguments. ``--ablate`` takes
 versions that compute something else (the current sources with a phase cut
@@ -18,9 +19,13 @@ demo scene (4 slabs, 3 frames), K2 with its folded clamp on the 1M ladder
 layout and without it on the 10k demo layout, K1 on the same two layouts
 (``chip_smoke.py``'s scenes), K4 at the probe's shapes (1,000,000 entities,
 66 chunks of 131,072 slots) and on a ragged case (1,237 entities, chunks of
-8,200 slots, chunk 2 empty) -- it checks that each old kernel, the new one
-and the plain version agree bit for bit, prints the tile the new kernel
-takes there (``cuda_kernels.tile_of``, or K4's ``expand_plan``), and times
+8,200 slots, chunk 2 empty), the boid tick on the boids benchmark cell's
+``[102400, 800]`` slots (``tests/test_torch_boid_tick.py``'s ``cell_args``,
+payload channel views) -- it checks that each old kernel, the new one
+and the plain version agree bit for bit (for the boid tick the old and the
+new kernel only: its sums run in another order than its plain version's),
+prints the tile the new kernel takes there (``cuda_kernels.tile_of``, or
+K4's ``expand_plan``), and times
 each old one against the new one in turns (old, new, new, old, twice),
 each turn one replay of a CUDA graph of 50-200 launches between CUDA events
 (``chip_smoke.graph_timer``), printing each median beside the bound from
@@ -42,7 +47,8 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-SOURCES = ("expand.cu", "pair_pass_grid.cu", "pair_pass_resident.cu", "pair_pass_symmetric.cu")
+SOURCES = ("boid_tick.cu", "expand.cu", "pair_pass_grid.cu", "pair_pass_resident.cu",
+           "pair_pass_symmetric.cu")
 
 
 def build_old(old_dir: Path):
@@ -117,7 +123,26 @@ def old_wrappers(fns):
         launch(fns["expand_launch"], x, y, order, flat, bounds, ox, oy, total // chunk, chunk)
         return ox, oy
 
-    wrappers = {"pair_pass_grid": pair_pass_grid_old,
+    def boid_tick_old(ids, d2, cols, own, flock, mouse, dt_ratio, extent):
+        import ctypes
+
+        count, slots = ids.shape
+        ax = torch.empty((count,), dtype=torch.float32, device=ids.device)
+        ay = torch.empty_like(ax)
+        tensors = (ids, d2, *cols, *own, *flock, *mouse, ax, ay)
+        ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+        strides = (ctypes.c_longlong * 10)(*(c.stride(0) for c in cols),
+                                           *(c.stride(1) for c in cols))
+        with torch.cuda.device(ids.device):
+            err = fns["boid_tick_launch"](ptrs, strides, count, slots, float(dt_ratio),
+                                          float(extent[0]), float(extent[1]),
+                                          torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"old kernel: CUDA launch failed with error {err}")
+        return ax, ay
+
+    wrappers = {"boid_tick": boid_tick_old,
+                "pair_pass_grid": pair_pass_grid_old,
                 "pair_pass_resident": pair_pass_resident_old,
                 "pair_pass_symmetric": pair_pass_symmetric_old,
                 "expand": expand_old}
@@ -215,6 +240,10 @@ def main() -> int:
                        "tile": list(ck.tile_of(name, inputs[0].shape))}
         return figures
 
+    def tick_figures(inputs, got):
+        live_ms, _full_ms, fill = cs.boid_tick_bounds(inputs)
+        return (live_ms, "bytes"), {"shape": list(inputs[0].shape), "live_share": fill}
+
     def k4_figures(inputs, got):
         cs.check(inputs[0].numel() > 0, "K4: no entity")
         return (cs.k4_bound(inputs), "bytes"), {
@@ -244,6 +273,8 @@ def main() -> int:
         ("K4", "ragged_1237", ck.expand, ck.expand_plain,
          lambda: cs.k4_inputs(dev, 1237, 8200, 5 * 8200, cs.SEED + 1, empty_chunk=2), {}, 200,
          k4_figures),
+        ("boid_tick", "boids_102k_cell", ck.boid_tick, None,
+         lambda: cs.test_module("test_torch_boid_tick").cell_args(dev), {}, 50, tick_figures),
     ]
     rows = []
     for key, shape_name, new, plain, make, kw, reps, figures in cases:
@@ -251,7 +282,7 @@ def main() -> int:
             continue
         inputs = make()
         got_new = new(*inputs, **kw)
-        cs.check(bit_equal(got_new, plain(*inputs, **kw)),
+        cs.check(plain is None or bit_equal(got_new, plain(*inputs, **kw)),
                  f"{key} on {shape_name}: new vs plain differ")
         b, fields = figures(inputs, got_new)
         for old_name, (wrappers, checked) in olds.items():

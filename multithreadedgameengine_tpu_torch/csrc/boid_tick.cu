@@ -1,5 +1,7 @@
 // The boid tick, for Hopper (sm_90a): one pass over each boid's neighbour
-// slots that gives the row's new rigid_body.ax and rigid_body.ay.
+// slots that gives the row's new rigid_body.ax and rigid_body.ay. One
+// template serves Boid and Prey: the prey tick is the boid tick plus Prey's
+// neighbour hook, the flee from predators (kFlee).
 //
 // What it computes (demos/predators/boid.js:116-125): ax + flocking + mouse
 // + margin, for x and for y, with
@@ -9,30 +11,38 @@
 //   (boid.js:192-196), and, over the rest of the same entity type, the
 //   count and the sums of x, y, vx and vy for cohesion (boid.js:221-226)
 //   and alignment (boid.js:228-231);
+// - the prey tick only (prey.js:154-169): over the same rest, the sums of
+//   -d/d2 of the neighbours of the predators' entity type with d2 > 0,
+//   added as flee * (predator_avoid_factor * dt) after the separation;
 // - avoidMouse (boid.js:281-316): a push of 1000 / d2 away from world row
 //   0 when button 0 is down, inputs.mouse_x != 0 and the mouse (id 0) is in
 //   the list with d2 > 0;
 // - keepWithinBounds (boid.js:322-341): turn_factor at either margin.
-// Its plain version is ops/cuda_kernels.py::boid_tick_plain, which
-// restates models/boids.py's flocking_forces, avoid_mouse_force and
-// keep_within_bounds_force on tensors. Every operation is the plain
+// Its plain versions are ops/cuda_kernels.py::boid_tick_plain and
+// prey_tick_plain, which restate models/boids.py's flocking_forces,
+// avoid_mouse_force and keep_within_bounds_force, and Prey's flee hook, on
+// tensors. Every operation is the plain
 // version's, in float32, in its order (nvcc runs with --fmad=false and IEEE
 // division): 1 / d2, then the product; the entity type truncated from its
 // float channel. Only the order in which each row's sums add their terms
 // differs from torch.sum.
 //
-// It replaces no Pallas kernel: the JAX package writes the tick in XLA
-// (multithreadedgameengine_tpu/models/boids.py). It exists because the tick,
-// written as torch operations, is some 150 masked [N, S] operations, each
-// reading strided payload channels and writing [N, S] temporaries: half the
-// device frame of the boids benchmark (102,400 rows of 800 slots).
+// It replaces no Pallas kernel: the JAX package writes the ticks in XLA
+// (multithreadedgameengine_tpu/models/boids.py, predators.py). It exists
+// because a tick written as torch operations is some 150 (Boid) or 290
+// (Prey) masked [N, S] operations, each reading strided payload channels
+// and writing [N, S] temporaries: half the device frame of the boids
+// benchmark (102,400 rows of 800 slots) and of the 1M mixed one (1M prey
+// rows of 576 slots).
 //
 // What bounds it: bytes. It must read every slot's id (4 B) and, for the
 // live slots alone, d2 (4 B) and the neighbour's five payload channels (20
-// B of its 24-byte record), plus 13 fields of each row and 8 B of output.
-// At 102,400 x 800 slots with 10% of them live that is 328 MB of ids and
-// about 200 MB of the rest, about 0.16 ms at the card's 3.35 TB/s; reading
-// every slot's d2 and payload instead would be 2.6 GB, 0.78 ms.
+// B of its 24- or 28-byte record), plus the row's fields (13 for Boid, 14
+// for Prey) and 8 B of output. At 102,400 x 800 slots with 10% of them live
+// that is 328 MB of ids and about 200 MB of the rest, about 0.16 ms at the
+// card's 3.35 TB/s; reading every slot's d2 and payload instead would be
+// 2.6 GB, 0.78 ms. At 1M x 576 slots with 9.4% live: 2.30 GB of ids and
+// 1.36 GB of the rest, about 1.1 ms.
 //
 // Design: one warp a row, so the row's sums need no shared memory and no
 // atomics, and lanes on neighbouring slots make every load coalesced.
@@ -44,10 +54,11 @@
 //   record, so loading them only for same-type neighbours would save no
 //   bytes and add a round.
 // - Each lane keeps nine sums (separation x and y, cohesion x and y,
-//   alignment x and y, the same-type count, the mouse's presence and d2);
-//   five butterfly shuffles reduce them, and lane 0 finishes the row in the
-//   plain version's order and writes it.
-// - Live slots of a cell form a prefix of its 32 slots, so the live slots a
+//   alignment x and y, the same-type count, the mouse's presence and d2),
+//   and the prey tick two more (flee x and y); five butterfly shuffles
+//   reduce them, and lane 0 finishes the row in the plain version's order
+//   and writes it.
+// - Live slots of a cell form a prefix of its slots, so the live slots a
 //   warp loads lie close together and most sectors it touches are full.
 
 #include <cuda_runtime.h>
@@ -80,10 +91,14 @@ struct Args {
   float* out_ay;
   int count, slots;
   float dt, world_w, world_h;
+  const float* flee_factor;      // the prey tick's predator_avoid_factor (f32[count])
+  int predator_type;             // the prey tick's predators' entity type
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
+// kFlee: the prey tick (Prey's flee hook); without it, Boid's tick.
+template <bool kFlee>
 __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -101,6 +116,7 @@ __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
 
   float sep_x = 0.0f, sep_y = 0.0f, cen_x = 0.0f, cen_y = 0.0f;
   float vel_x = 0.0f, vel_y = 0.0f, mouse_d2 = 0.0f;
+  float flee_x = 0.0f, flee_y = 0.0f;
   int same_n = 0, mouse_in = 0;
   for (int base = lane; base < a.slots; base += 32 * kUnroll) {
     int id[kUnroll];
@@ -138,12 +154,24 @@ __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
         const float dy = v[u][kY] - y;
         sep_x += -dx * inv;
         sep_y += -dy * inv;
-      } else if (ntype == type) {
-        ++same_n;
-        cen_x += v[u][kX];
-        cen_y += v[u][kY];
-        vel_x += v[u][kVx];
-        vel_y += v[u][kVy];
+      } else {
+        if (ntype == type) {
+          ++same_n;
+          cen_x += v[u][kX];
+          cen_y += v[u][kY];
+          vel_x += v[u][kVx];
+          vel_y += v[u][kVy];
+        }
+        if constexpr (kFlee) {
+          // Prey's hook sees the rest: not the mouse, not separated
+          if (ntype == a.predator_type && d2[u] > 0.0f) {
+            const float inv = 1.0f / d2[u];
+            const float dx = v[u][kX] - x;
+            const float dy = v[u][kY] - y;
+            flee_x += -dx * inv;
+            flee_y += -dy * inv;
+          }
+        }
       }
     }
   }
@@ -158,6 +186,10 @@ __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
     mouse_d2 += __shfl_xor_sync(kAll, mouse_d2, o);
     same_n += __shfl_xor_sync(kAll, same_n, o);
     mouse_in |= __shfl_xor_sync(kAll, mouse_in, o);
+    if constexpr (kFlee) {
+      flee_x += __shfl_xor_sync(kAll, flee_x, o);
+      flee_y += __shfl_xor_sync(kAll, flee_y, o);
+    }
   }
   if (lane != 0) return;
 
@@ -174,6 +206,12 @@ __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
   fy = fy + (has_same ? (vel_y * inv_n - vy) * matching * dt : 0.0f);
   fx = fx + sep_x * avoid * dt;
   fy = fy + sep_y * avoid * dt;
+  if constexpr (kFlee) {
+    // Prey.tick: predator_avoid_factor * dt first, then the product
+    const float flee = ld(a.flee_factor + row) * dt;
+    fx = fx + flee_x * flee;
+    fy = fy + flee_y * flee;
+  }
 
   // avoid_mouse_force
   const bool engaged = (*a.mouse_down != 0) && (*a.mouse_x != 0.0f) && mouse_in &&
@@ -194,19 +232,17 @@ __global__ void __launch_bounds__(kWarps * 32) boid_tick_kernel(const Args a) {
   a.out_ay[row] = ld(a.own[5] + row) + fy + my + by;
 }
 
-}  // namespace
-
-// One boid tick on `stream`. `ptrs`, device pointers in this order: ids,
-// d2, the five neighbour columns (x, y, vx, vy, entity type), the row's x,
-// y, vx, vy, ax, ay and entity type, the six flocking fields
+// The tick's arguments from the launch's: `ptrs`, device pointers in this
+// order: ids, d2, the five neighbour columns (x, y, vx, vy, entity type), the
+// row's x, y, vx, vy, ax, ay and entity type, the six flocking fields
 // (protected_range, centering_factor, avoid_factor, matching_factor,
 // turn_factor, margin), mouse_down (bool), inputs.mouse_x, world row 0's x
-// and y, then the outputs ax and ay. `strides`: each column's row stride,
-// then each column's slot stride, in elements. Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int boid_tick_launch(const void* const* ptrs, const long long* strides, int count,
-                                int slots, float dt, float world_w, float world_h,
-                                void* stream) {
+// and y, the outputs ax and ay, then, with kFlee, the row's
+// predator_avoid_factor. `strides`: each column's row stride, then each
+// column's slot stride, in elements.
+template <bool kFlee>
+int launch(const void* const* ptrs, const long long* strides, int count, int slots, float dt,
+           float world_w, float world_h, int predator_type, void* stream) {
   if (count <= 0 || slots < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   int k = 0;
@@ -231,7 +267,29 @@ extern "C" int boid_tick_launch(const void* const* ptrs, const long long* stride
   a.dt = dt;
   a.world_w = world_w;
   a.world_h = world_h;
+  a.flee_factor = kFlee ? static_cast<const float*>(ptrs[k++]) : nullptr;
+  a.predator_type = predator_type;
   const int grid = (count + kWarps - 1) / kWarps;
-  boid_tick_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  boid_tick_kernel<kFlee><<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One boid tick on `stream` (`ptrs` and `strides` as `launch` reads them).
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int boid_tick_launch(const void* const* ptrs, const long long* strides, int count,
+                                int slots, float dt, float world_w, float world_h,
+                                void* stream) {
+  return launch<false>(ptrs, strides, count, slots, dt, world_w, world_h, -1, stream);
+}
+
+// One prey tick on `stream`: the boid tick with Prey's flee from the
+// neighbours of entity type `predator_type` (`ptrs` ending in the rows'
+// predator_avoid_factor). Returns the launch's cudaError_t (0 on success).
+extern "C" int prey_tick_launch(const void* const* ptrs, const long long* strides, int count,
+                                int slots, float dt, float world_w, float world_h,
+                                int predator_type, void* stream) {
+  return launch<true>(ptrs, strides, count, slots, dt, world_w, world_h, predator_type,
+                      stream);
 }

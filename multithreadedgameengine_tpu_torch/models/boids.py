@@ -7,9 +7,11 @@ per entity under ``vmap``, the port writes them for the class slice: the
 neighbour columns are ``[count, S]``, every reduction runs along dim 1, and
 an entity's own fields meet them as ``[count, 1]``. :func:`flocking_forces`
 returns a :class:`FlockAux` with the per-slot intermediates so subclasses
-(``models.predators``' Prey and Predator) run their own reductions over the
-same pass. ``Boid.tick`` keeps none: it is one ``ops.cuda_kernels.boid_tick``,
-which on the card reads each live neighbour slot once.
+(``models.predators``' Predator) run their own reductions over the same
+pass. ``Boid.tick`` keeps none: it is one ``ops.cuda_kernels.boid_tick``,
+which on the card reads each live neighbour slot once; ``Prey.tick`` is the
+same kernel with its flee hook (``ops.cuda_kernels.prey_tick``), from the
+arguments :func:`tick_args` gathers.
 
 BASELINE config 3 is this class alone: ``benchmarks/run_ladder.py:166-188``
 builds the scene inline (15,000 boids in 5000 x 2000), as does
@@ -204,16 +206,23 @@ class Boid(EntityClass):
         """boid.js:116-125: ``ax`` plus :func:`flocking_forces`,
         :func:`avoid_mouse_force` and :func:`keep_within_bounds_force`, as
         one ``ops.cuda_kernels.boid_tick`` (one kernel on the card, its
-        plain version on the CPU). The neighbour columns are payload
-        channels or gathers; the type column is f32 as the payload holds it."""
-        cols = [ctx.neighbor_col(p) for p in Boid.neighbor_fields]
-        cols[4] = cols[4].to(torch.float32)
-        w = ctx.world
-        ax, ay = boid_tick(
-            ctx.neighbor_ids, ctx.neighbor_d2, cols,
+        plain version on the CPU)."""
+        ax, ay = boid_tick(*tick_args(ctx))
+        return {"rigid_body.ax": ax, "rigid_body.ay": ay}
+
+
+def tick_args(ctx: TickCtx) -> tuple:
+    """The arguments ``boid_tick`` takes for ``ctx``'s rows (``prey_tick``
+    takes them first): the neighbour columns of ``Boid.neighbor_fields``,
+    payload channels or gathers, the type column f32 as the payload holds
+    it; the row's fields, its ``flocking.`` fields, the mouse inputs and
+    world row 0, the frame's dt ratio and the world's extent."""
+    cols = [ctx.neighbor_col(p) for p in Boid.neighbor_fields]
+    cols[4] = cols[4].to(torch.float32)
+    w = ctx.world
+    return (ctx.neighbor_ids, ctx.neighbor_d2, cols,
             (ctx.x, ctx.y, ctx.vx, ctx.vy, ctx.ax, ctx.ay, ctx.entity_type),
             [ctx.field(f"flocking.{f}") for f in FLOCKING_FIELDS],
             (ctx.mouse_down, ctx.inputs.mouse_x, w.transform.x[MOUSE_ENTITY_INDEX],
              w.transform.y[MOUSE_ENTITY_INDEX]),
             ctx.dt_ratio, (ctx.config.world_width, ctx.config.world_height))
-        return {"rigid_body.ax": ax, "rigid_body.ay": ay}

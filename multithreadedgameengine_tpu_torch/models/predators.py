@@ -9,11 +9,13 @@ machine: BASELINE config 4, the reference's operating point
 50,000-particle pool with decals, lighting with shadows).
 
 Prey and Predator are the port's batched Boid (``models/boids.py``) with
-their own neighbour hooks: the ticks reduce the ``[count, S]`` flocking
-intermediates of :class:`~.boids.FlockAux` along the slots. The class
-attributes ``ANIM_TABLE`` hold each class's ``[3 states, 4 directions]``
-animation table (set by :func:`make_predators_engine` on the engine's
-device, as the reference sets them; a tick on another device copies it).
+their own neighbour hooks. Prey's tick is one ``ops.cuda_kernels.prey_tick``
+(the boid tick kernel with the flee hook on the card, its plain version on
+the CPU); Predator's reduces the ``[count, S]`` flocking intermediates of
+:class:`~.boids.FlockAux` along the slots. The class attributes
+``ANIM_TABLE`` hold each class's ``[3 states, 4 directions]`` animation
+table (set by :func:`make_predators_engine` on the engine's device, as the
+reference sets them; a tick on another device copies it).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..behavior import EntityClass, TickCtx
 from ..components import LightEmitter, define_component
 from ..config import EngineConfig, make_config
 from ..engine import Engine
+from ..ops.cuda_kernels import prey_tick
 from ..ops.physics import _sqrt
 from ..utils import direction_from_angle
 from .boids import (
@@ -33,6 +36,7 @@ from .boids import (
     avoid_mouse_force,
     flocking_forces,
     keep_within_bounds_force,
+    tick_args,
 )
 
 # demos/predators/PreyBehavior.js / PredatorBehavior.js custom components
@@ -144,24 +148,12 @@ class Prey(Boid):
     @staticmethod
     def tick(ctx: TickCtx):
         """prey.js:120-189: flocking, fleeing predators (1/d^2 panic), the
-        mouse, the bounds and the animation."""
-        fx, fy, aux = flocking_forces(ctx)
-        # processNeighbor hook: the flee force from predator neighbours
-        # (prey.js:154-169)
-        is_pred = aux.hook_mask & (aux.neighbor_type == Predator.entity_type) & (aux.d2 > 0)
-        inv_d2 = torch.where(is_pred, 1.0 / torch.where(aux.d2 > 0, aux.d2, 1.0), 0.0)
-        flee_x = torch.sum(torch.where(is_pred, -aux.dx * inv_d2, 0.0), dim=1)
-        flee_y = torch.sum(torch.where(is_pred, -aux.dy * inv_d2, 0.0), dim=1)
-        avoid = ctx.field("prey_behavior.predator_avoid_factor") * ctx.dt_ratio
-        fx = fx + flee_x * avoid
-        fy = fy + flee_y * avoid
-
-        mx, my = avoid_mouse_force(ctx)
-        bx, by = keep_within_bounds_force(ctx)
-        out = {
-            "rigid_body.ax": ctx.ax + fx + mx + bx,
-            "rigid_body.ay": ctx.ay + fy + my + by,
-        }
+        mouse and the bounds as one ``ops.cuda_kernels.prey_tick`` (one
+        kernel on the card, its plain version on the CPU), then the
+        animation."""
+        ax, ay = prey_tick(*tick_args(ctx), ctx.field("prey_behavior.predator_avoid_factor"),
+                           Predator.entity_type)
+        out = {"rigid_body.ax": ax, "rigid_body.ay": ay}
         # prey thresholds: walk > 0.1, run > 2, animation speed = speed * 0.15
         out.update(_animation_updates(ctx, Prey.ANIM_TABLE, 0.1, 2.0, 0.15))
         return out

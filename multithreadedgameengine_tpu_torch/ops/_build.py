@@ -43,6 +43,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 ENTRY_POINTS = {
     "boid_tick.cu": (
         ("boid_tick_launch", [_P, _P, _I, _I, _F, _F, _F, _P], _I),
+        ("prey_tick_launch", [_P, _P, _I, _I, _F, _F, _F, _I, _P], _I),
     ),
     "expand.cu": (
         ("expand_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),

@@ -39,7 +39,8 @@ tile and the grid).
 The boid tick replaces no TPU kernel (the JAX package writes the tick in
 XLA): :func:`boid_tick`, source ``csrc/boid_tick.cu``, gives ``Boid.tick``'s
 new accelerations in one pass over each row's neighbour slots, one warp a
-row, loading d2 and the payload only for live slots.
+row, loading d2 and the payload only for live slots; :func:`prey_tick`, the
+same source's flee instantiation, gives ``Prey.tick``'s.
 
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
@@ -630,7 +631,8 @@ def expand_plan(total: int) -> dict:
 BOID_MOUSE = 0
 
 
-def _check_boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse) -> None:
+def _check_boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse,
+                     flee_factor=None) -> None:
     if ids.dim() != 2:
         raise ValueError(f"ids must be [count, slots], got {tuple(ids.shape)}")
     count = ids.shape[0]
@@ -649,7 +651,11 @@ def _check_boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse) -> None:
     checks += [(name, t, dtype, (), False) for name, t, dtype in zip(
         ("mouse_down", "mouse_x", "mouse row x", "mouse row y"), mouse,
         (torch.bool, torch.float32, torch.float32, torch.float32))]
+    if flee_factor is not None:
+        checks.append(("predator_avoid_factor", flee_factor, torch.float32, (count,), True))
     for name, t, dtype, shape, contiguous in checks:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a tensor, got {type(t).__name__}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if t.dtype != dtype:
@@ -662,23 +668,10 @@ def _check_boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse) -> None:
         raise ValueError("too many rows for int32 kernel arguments")
 
 
-def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
-                    extent) -> Tuple[Tensor, Tensor]:
-    """``Boid.tick`` in plain PyTorch: ``ax + flocking + mouse + margin``
-    for x and y, with ``models.boids``' ``flocking_forces``,
-    ``avoid_mouse_force`` and ``keep_within_bounds_force`` (boid.js:116-341)
-    restated on tensors, operation for operation.
-
-    ``ids`` int32 and ``d2`` f32 ``[count, S]`` (-1 in an empty slot);
-    ``cols``: the neighbours' x, y, vx, vy and entity type, f32 ``[count,
-    S]`` each, of any strides (payload channel views or gathered columns);
-    ``own``: the row's x, y, vx, vy, ax, ay (f32) and entity type (int32),
-    ``[count]`` each; ``flock``: its ``flocking.`` protected_range,
-    centering_factor, avoid_factor, matching_factor, turn_factor and margin,
-    f32 ``[count]``; ``mouse``: 0-dim tensors, mouse button 0 (bool),
-    ``inputs.mouse_x`` and world row 0's x and y; ``extent``: (world width,
-    world height). Returns the new ``rigid_body.ax`` and ``rigid_body.ay``."""
-    _check_boid_tick(ids, d2, cols, own, flock, mouse)
+def _tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float, extent,
+                flee=None) -> Tuple[Tensor, Tensor]:
+    """The boid tick's new ax and ay in plain PyTorch; ``flee``, (the rows'
+    predator_avoid_factor, the predators' entity type), adds Prey's hook."""
     nx, ny, nvx, nvy, ntype_col = cols
     x, y, vx, vy, ax, ay, entity_type = own
     protected_range, centering, avoid, matching, turn_factor, margin = flock
@@ -696,7 +689,8 @@ def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: 
     inv_d2 = torch.where(sep, 1.0 / torch.where(d2 > 0, d2, 1.0), 0.0)
     separate_x = torch.sum(torch.where(sep, -dx * inv_d2, 0.0), dim=1)
     separate_y = torch.sum(torch.where(sep, -dy * inv_d2, 0.0), dim=1)
-    same = not_mouse & ~sep & (ntype == entity_type[:, None])
+    rest = not_mouse & ~sep
+    same = rest & (ntype == entity_type[:, None])
     same_n = torch.sum(same, dim=1, dtype=torch.int32)
     center_x = torch.sum(torch.where(same, nx, 0.0), dim=1)
     center_y = torch.sum(torch.where(same, ny, 0.0), dim=1)
@@ -710,6 +704,17 @@ def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: 
     fy = fy + torch.where(has_same, (avg_vy * inv_n - vy) * matching * dt, 0.0)
     fx = fx + separate_x * avoid * dt
     fy = fy + separate_y * avoid * dt
+
+    if flee is not None:
+        # Prey's processNeighbor hook: the flee from predators (prey.js:154-169)
+        flee_factor, predator_type = flee
+        is_pred = rest & (ntype == predator_type) & (d2 > 0)
+        inv_p = torch.where(is_pred, 1.0 / torch.where(d2 > 0, d2, 1.0), 0.0)
+        flee_x = torch.sum(torch.where(is_pred, -dx * inv_p, 0.0), dim=1)
+        flee_y = torch.sum(torch.where(is_pred, -dy * inv_p, 0.0), dim=1)
+        flee_avoid = flee_factor * dt
+        fx = fx + flee_x * flee_avoid
+        fy = fy + flee_y * flee_avoid
 
     # avoid_mouse_force (boid.js:281-316)
     slot = live & (ids == BOID_MOUSE)
@@ -730,19 +735,17 @@ def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: 
     return ax + fx + mx + bx, ay + fy + my + by
 
 
-def boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
-              extent) -> Tuple[Tensor, Tensor]:
-    """One boid tick (see :func:`boid_tick_plain` for the contract). CPU
-    tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream, reading the mouse inputs through device pointers (no
-    host read), and raise if the launch is refused. The kernel sums each
-    row's terms in another order than ``torch.sum``; every other operation
-    is the plain version's."""
-    _check_boid_tick(ids, d2, cols, own, flock, mouse)
-    if ids.device.type == "cpu":
-        return boid_tick_plain(ids, d2, cols, own, flock, mouse, dt_ratio, extent)
+def _tick(fn, ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float, extent,
+          flee=None) -> Tuple[Tensor, Tensor]:
+    """Check a tick's arguments, then run its plain version (``fn`` None,
+    or CPU tensors) or launch ``fn``'s kernel (``boid_tick``, or
+    ``prey_tick`` with ``flee``) on the current stream of the tensors'
+    card, and count the launch on ``fn``."""
+    _check_boid_tick(ids, d2, cols, own, flock, mouse, None if flee is None else flee[0])
+    if fn is None or ids.device.type == "cpu":
+        return _tick_plain(ids, d2, cols, own, flock, mouse, dt_ratio, extent, flee)
     if ids.device.type != "cuda":
-        raise ValueError(f"boid_tick runs on cpu or cuda, not {ids.device}")
+        raise ValueError(f"{fn.__name__} runs on cpu or cuda, not {ids.device}")
     import ctypes
 
     from . import _build
@@ -754,17 +757,81 @@ def boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
     if count == 0:
         return out_ax, out_ay
     tensors = (ids, d2, *cols, *own, *flock, *mouse, out_ax, out_ay)
+    if flee is not None:
+        tensors += (flee[0],)
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 10)(*(c.stride(0) for c in cols),
                                        *(c.stride(1) for c in cols))
+    args = (ptrs, strides, count, slots, float(dt_ratio), float(extent[0]), float(extent[1]))
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.boid_tick_launch(ptrs, strides, count, slots, float(dt_ratio),
-                                   float(extent[0]), float(extent[1]), stream)
+        if flee is None:
+            err = lib.boid_tick_launch(*args, stream)
+        else:
+            err = lib.prey_tick_launch(*args, flee[1], stream)
     if err != 0:
-        raise RuntimeError(f"boid_tick: CUDA launch failed with error {err}")
-    boid_tick.launches += 1
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error {err}")
+    fn.launches += 1
     return out_ax, out_ay
 
 
+def boid_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
+                    extent) -> Tuple[Tensor, Tensor]:
+    """``Boid.tick`` in plain PyTorch: ``ax + flocking + mouse + margin``
+    for x and y, with ``models.boids``' ``flocking_forces``,
+    ``avoid_mouse_force`` and ``keep_within_bounds_force`` (boid.js:116-341)
+    restated on tensors, operation for operation.
+
+    ``ids`` int32 and ``d2`` f32 ``[count, S]`` (-1 in an empty slot);
+    ``cols``: the neighbours' x, y, vx, vy and entity type, f32 ``[count,
+    S]`` each, of any strides (payload channel views or gathered columns);
+    ``own``: the row's x, y, vx, vy, ax, ay (f32) and entity type (int32),
+    ``[count]`` each; ``flock``: its ``flocking.`` protected_range,
+    centering_factor, avoid_factor, matching_factor, turn_factor and margin,
+    f32 ``[count]``; ``mouse``: 0-dim tensors, mouse button 0 (bool),
+    ``inputs.mouse_x`` and world row 0's x and y; ``extent``: (world width,
+    world height). Returns the new ``rigid_body.ax`` and ``rigid_body.ay``."""
+    return _tick(None, ids, d2, cols, own, flock, mouse, dt_ratio, extent)
+
+
+def boid_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
+              extent) -> Tuple[Tensor, Tensor]:
+    """One boid tick (see :func:`boid_tick_plain` for the contract). CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream, reading the mouse inputs through device pointers (no
+    host read), and raise if the launch is refused. The kernel sums each
+    row's terms in another order than ``torch.sum``; every other operation
+    is the plain version's."""
+    return _tick(boid_tick, ids, d2, cols, own, flock, mouse, dt_ratio, extent)
+
+
 boid_tick.launches = 0
+
+
+def prey_tick_plain(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
+                    extent, flee_factor: Tensor, predator_type: int) -> Tuple[Tensor, Tensor]:
+    """``Prey.tick``'s forces in plain PyTorch (prey.js:120-189): the boid
+    tick of :func:`boid_tick_plain`, with Prey's processNeighbor hook added
+    after the separation: over the neighbours the hook sees (live, not the
+    mouse, not separated) of entity type ``predator_type`` with d2 > 0, the
+    sums of ``-d / d2``, times ``flee_factor * dt_ratio``.
+    ``flee_factor``: the rows' ``prey_behavior.predator_avoid_factor``, f32
+    ``[count]``; ``predator_type``: the Predator class's entity type (an
+    int). Returns the new ``rigid_body.ax`` and ``rigid_body.ay``."""
+    return _tick(None, ids, d2, cols, own, flock, mouse, dt_ratio, extent,
+                 (flee_factor, int(predator_type)))
+
+
+def prey_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float, extent,
+              flee_factor: Tensor, predator_type: int) -> Tuple[Tensor, Tensor]:
+    """One prey tick (see :func:`prey_tick_plain` for the contract): CPU
+    tensors run the plain version; CUDA tensors launch the boid tick
+    kernel's flee instantiation on the current stream, reading the mouse
+    inputs and the flee factor through device pointers (no host read), and
+    raise if the launch is refused. As in :func:`boid_tick`, only the order
+    of each row's sums differs from the plain version."""
+    return _tick(prey_tick, ids, d2, cols, own, flock, mouse, dt_ratio, extent,
+                 (flee_factor, int(predator_type)))
+
+
+prey_tick.launches = 0

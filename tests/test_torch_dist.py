@@ -303,5 +303,5 @@ def test_dryrun_multichip_runs_every_rung():
     assert reports[3][0]["step_count"] == 4
     # every rank's kernel launches reach rank 0 (none on the CPU)
     assert reports[1][0]["launches_by_rank"] == {
-        k: [0] * D for k in ("K1", "K2", "K3", "boid_tick")}
+        k: [0] * D for k in ("K1", "K2", "K3", "boid_tick", "prey_tick")}
     assert reports[1][1]["launches_by_rank"] is None

@@ -62,7 +62,8 @@ def test_port_runs_two_frames_without_jax():
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(REPO) for p in PORT.rglob("*.py"))
-    + [Path("chip_smoke.py"), Path("torch_profile.py"), Path("kernel_ab.py")],
+    + [Path("chip_smoke.py"), Path("torch_profile.py"), Path("kernel_ab.py"),
+       Path("mixed_drift.py")],
     ids=str,
 )
 def test_source_has_no_jax_import(path):
