@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of the tiled pair passes K1, K2 and K3, of the expand placement K4
-and of the boid tick against other versions of their sources, on one
-NVIDIA GPU.
+"""A/B of the port's kernels against other versions of their sources, on
+one NVIDIA GPU, on the kernel table's cases.
 
     python3 kernel_ab.py --old DIR [DIR ...] [--ablate DIR ...] [--out build/kernel_ab.json]
 
@@ -13,27 +12,19 @@ functions must take the current ones' arguments. ``--ablate`` takes
 versions that compute something else (the current sources with a phase cut
 out, to price that phase): they are timed the same way but not checked. All
 are built with ``ops/_build.py``'s nvcc flags, one nvcc per source in
-parallel, and each library's ``-Xptxas -v`` lines are printed. Then, for
-each kernel and shape -- K3 on slab 1 of the 1M halo rung and of the 10k
-demo scene (4 slabs, 3 frames), K2 with its folded clamp on the 1M ladder
-layout and without it on the 10k demo layout, K1 on the same two layouts
-(``chip_smoke.py``'s scenes), K4 at the probe's shapes (1,000,000 entities,
-66 chunks of 131,072 slots) and on a ragged case (1,237 entities, chunks of
-8,200 slots, chunk 2 empty), the boid tick on the boids benchmark cell's
-``[102400, 800]`` slots (``tests/test_torch_boid_tick.py``'s ``cell_args``,
-payload channel views) -- it checks that each old kernel, the new one
-and the plain version agree bit for bit (for the boid tick the old and the
-new kernel only: its sums run in another order than its plain version's),
-prints the tile the new kernel takes there (``cuda_kernels.tile_of``, or
-K4's ``expand_plan``), and times
-each old one against the new one in turns (old, new, new, old, twice),
-each turn one replay of a CUDA graph of 50-200 launches between CUDA events
-(``chip_smoke.graph_timer``), printing each median beside the bound from
-``chip_smoke.py``. K4 is timed a second way too: each launch after a 64 MB
-write that flushes the 50 MB L2 cache, the write's own time (timed alone
-the same way) subtracted. A directory without a kernel's source skips that
-kernel's cases. The last line is a JSON object of the results, also
-written to ``--out``. Imports nothing of JAX.
+parallel, and each library's ``-Xptxas -v`` lines are printed. Then, on
+each case of the kernel table (``torch_scenes.py``'s ``CASES``)
+whose kernel an old source holds, it checks the new kernel against its
+plain version (``compare``) and each old kernel against the new one
+bit for bit, and times each old one against the new one in turns (old,
+new, new, old, twice; ``chip_smoke.turns``), each turn one replay of a
+CUDA graph of the case's launches between CUDA events
+(``chip_smoke.graph_timer``), printing each median beside the case's bound
+and the new kernel's tile or plan (``chip_smoke.figures``). K4 is timed a
+second way too: each launch after a 64 MB write that flushes the 50 MB L2
+cache, the write's own time (timed alone the same way) subtracted. The
+last line is a JSON object of the results, also written to ``--out``. Run
+it from the repo's root. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +37,7 @@ import sys
 from pathlib import Path
 
 import chip_smoke as cs
+from torch_scenes import CASES, card_name_and_limit, compare, kernels, scene_inputs
 
 SOURCES = ("boid_tick.cu", "expand.cu", "pair_pass_grid.cu", "pair_pass_resident.cu",
            "pair_pass_symmetric.cu")
@@ -157,15 +149,8 @@ def bit_equal(a, b) -> bool:
 
 def time_ab(old, new, args, reps, **kw):
     """Median ms of the old and the new kernel, each from a CUDA graph of
-    ``reps`` launches, in turns old, new, new, old, twice."""
-    run_old = cs.graph_timer(old, args, reps, **kw)
-    run_new = cs.graph_timer(new, args, reps, **kw)
-    t_old, t_new = [], []
-    for _ in range(2):
-        t_old.append(run_old())
-        t_new += [run_new(), run_new()]
-        t_old.append(run_old())
-    return statistics.median(t_old), statistics.median(t_new)
+    ``reps`` launches, in turns."""
+    return cs.turns(cs.graph_timer(old, args, reps, **kw), cs.graph_timer(new, args, reps, **kw))
 
 
 def time_ab_flushed(old, new, args, reps):
@@ -200,12 +185,11 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
 
-    from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
     from multithreadedgameengine_tpu_torch.ops import _build
 
-    smi = cs.card_name_and_limit()
+    smi = card_name_and_limit()
     print(smi, flush=True)
-    ck = cs.kernels()
+    ck = kernels()
     new_libs = _build.build()
     _build.load()
     reports = {p.name: _build.ptxas_report(p) for p in new_libs}
@@ -219,86 +203,31 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {lib} {line.strip()}", flush=True)
     dev = torch.device("cuda")
-
-    def layout(scene, frames):
-        eng = make_balls_engine(device=dev, **scene)
-        eng.step(frames, block=True)
-        return cs.layout_args(eng)
-
-    ladder = dict(n_balls=1_000_000, seed=cs.SEED, world_width=90_000.0,
-                  world_height=40_000.0, physics=cs.LADDER_PHYSICS)
-    demo = dict(n_balls=cs.N_MAIN, seed=cs.SEED)
-    def pair_figures(name, key):
-        """A pair pass's bound, from the contacts the new kernel counted,
-        and the tile it takes."""
-        def figures(inputs, got):
-            contacts = int(got[2].sum().item())
-            cs.check(contacts > 0, f"{key}: no contact")
-            b = (cs.grid_bound(inputs, contacts) if key == "K3"
-                 else cs.bound(inputs, contacts, key != "K1"))
-            return b, {"shape": list(inputs[0].shape), "contacts": contacts,
-                       "tile": list(ck.tile_of(name, inputs[0].shape))}
-        return figures
-
-    def tick_figures(inputs, got):
-        live_ms, _full_ms, fill = cs.boid_tick_bounds(inputs)
-        return (live_ms, "bytes"), {"shape": list(inputs[0].shape), "live_share": fill}
-
-    def k4_figures(inputs, got):
-        cs.check(inputs[0].numel() > 0, "K4: no entity")
-        return (cs.k4_bound(inputs), "bytes"), {
-            "shape": list(got[0].shape), "entities": inputs[0].numel(),
-            **ck.expand_plan(inputs[5])}
-
-    pairs = [
-        ("K3", "halo_1m_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain,
-         lambda: cs.halo_slab_args(dev, dict(n_balls=cs.HALO_N - 1, seed=cs.SEED,
-                                             world_width=cs.HALO_WORLD[0],
-                                             world_height=cs.HALO_WORLD[1])), {}, 50),
-        ("K3", "halo_10k_slab1", ck.pair_pass_grid, ck.pair_pass_grid_plain,
-         lambda: cs.halo_slab_args(dev, dict(n_balls=cs.N_MAIN - 1, seed=cs.SEED)), {}, 200),
-        ("K2+clamp", "ladder_1m", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain,
-         lambda: layout(ladder, 5), dict(clamp_bounds=(90_000.0, 40_000.0)), 50),
-        ("K2", "demo_10k", ck.pair_pass_symmetric, ck.pair_pass_symmetric_plain,
-         lambda: layout(demo, 30), {}, 200),
-        ("K1", "ladder_1m", ck.pair_pass_resident, ck.pair_pass_resident_plain,
-         lambda: layout(ladder, 5), {}, 50),
-        ("K1", "demo_10k", ck.pair_pass_resident, ck.pair_pass_resident_plain,
-         lambda: layout(demo, 30), {}, 200),
-    ]
-    cases = [(*c, pair_figures(c[2].__name__, c[0])) for c in pairs] + [
-        ("K4", "probe_1m", ck.expand, ck.expand_plain,
-         lambda: cs.k4_inputs(dev, cs.K4_N, cs.K4_CHUNK, cs.K4_TOTAL, cs.SEED), {}, 50,
-         k4_figures),
-        ("K4", "ragged_1237", ck.expand, ck.expand_plain,
-         lambda: cs.k4_inputs(dev, 1237, 8200, 5 * 8200, cs.SEED + 1, empty_chunk=2), {}, 200,
-         k4_figures),
-        ("boid_tick", "boids_102k_cell", ck.boid_tick, None,
-         lambda: cs.test_module("test_torch_boid_tick").cell_args(dev), {}, 50, tick_figures),
-    ]
     rows = []
-    for key, shape_name, new, plain, make, kw, reps, figures in cases:
-        if not any(new.__name__ in wrappers for wrappers, _checked in olds.values()):
+    for case in CASES:
+        if not any(case.kernel in wrappers for wrappers, _checked in olds.values()):
             continue
-        inputs = make()
+        new, plain = getattr(ck, case.kernel), getattr(ck, f"{case.kernel}_plain")
+        kw = {} if case.clamp is None else {"clamp_bounds": case.clamp}
+        inputs, _launches = scene_inputs(case, dev)
         got_new = new(*inputs, **kw)
-        cs.check(plain is None or bit_equal(got_new, plain(*inputs, **kw)),
-                 f"{key} on {shape_name}: new vs plain differ")
-        b, fields = figures(inputs, got_new)
+        cmp = compare(case, inputs, got_new, plain(*inputs, **kw))
+        cs.check(cmp["ok"], f"{case.id}: new vs plain differ ({cmp['max_abs_err']})")
+        fields = cs.figures(case, inputs, got_new)
         for old_name, (wrappers, checked) in olds.items():
-            old = wrappers.get(new.__name__)
+            old = wrappers.get(case.kernel)
             if old is None:
                 continue
             cs.check(not checked or bit_equal(got_new, old(*inputs, **kw)),
-                     f"{key} on {shape_name}: new vs {old_name} differ")
-            ms_old, ms_new = time_ab(old, new, inputs, reps, **kw)
-            row = {"kernel": key, "shape_name": shape_name, **fields, "old": old_name,
-                   "old_ms": ms_old, "new_ms": ms_new,
-                   "speedup": ms_old / ms_new, "bound_ms": b[0], "bound_by": b[1],
-                   "new_share_of_bound": b[0] / ms_new, "old_share_of_bound": b[0] / ms_old,
-                   "bit_equal_old_new_plain": checked}
-            if key == "K4":
-                f_old, f_new, f_write = time_ab_flushed(old, new, inputs, reps)
+                     f"{case.id}: new vs {old_name} differ")
+            ms_old, ms_new = time_ab(old, new, inputs, case.reps, **kw)
+            row = {"case": case.id, **fields, "old": old_name, "old_ms": ms_old,
+                   "new_ms": ms_new, "speedup": ms_old / ms_new,
+                   "new_share_of_bound": fields["bound_ms"] / ms_new,
+                   "old_share_of_bound": fields["bound_ms"] / ms_old,
+                   "bit_equal_old_new": checked}
+            if case.kernel == "expand":
+                f_old, f_new, f_write = time_ab_flushed(old, new, inputs, case.reps)
                 row.update(old_ms_l2_flushed=f_old, new_ms_l2_flushed=f_new,
                            flush_write_ms=f_write)
             cs.log("ab", **row)

@@ -18,7 +18,7 @@ Tolerances, each with its reason:
   within ``(n - 1) u sum|t|`` of the exact one (``u = 2^-24``), and the
   eight or so operations after the sums round alike up to an ulp of their
   magnitudes, so a row's ``ax`` may differ by ``(S + 8) 2^-22 M``, ``M``
-  the sum of the magnitudes that make it up (:func:`order_tolerance`).
+  the sum of the magnitudes that make it up (:func:`torch_scenes.boid_order_tolerance`).
 """
 
 from types import SimpleNamespace as NS
@@ -26,6 +26,8 @@ from types import SimpleNamespace as NS
 import numpy as np
 import pytest
 import torch
+
+from torch_scenes import boid_order_tolerance, mouse_inputs
 
 from multithreadedgameengine_tpu_torch import Engine, make_config
 from multithreadedgameengine_tpu_torch.behavior import TickCtx
@@ -119,11 +121,6 @@ def scene(seed, count=96, slots=64, exact=False, device="cpu"):
            torch.as_tensor(rng.integers(1, 3, count), dtype=torch.int32, device=device))
     return (f32(payload), torch.as_tensor(ids, dtype=torch.int32, device=device), f32(d2), own,
             [f32(flock[f]) for f in FLOCKING_FIELDS], (f32(ex[0] + 3.0), f32(ey[0] - 2.0)))
-
-
-def mouse_inputs(down, mouse_x, device="cpu"):
-    return NS(mouse_x=torch.tensor(mouse_x, dtype=torch.float32, device=device),
-              mouse_buttons=torch.tensor([down, False, False], device=device))
 
 
 def tick_ctx(sc, inputs, dt_ratio):
@@ -284,38 +281,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def order_tolerance(args):
-    """Per row, how far ``ax`` and ``ay`` may differ when only the order of
-    each row's sums differs: ``(S + 8) 2^-22`` times the sum of the
-    magnitudes that make up each (the separation, cohesion and alignment
-    terms, the row's own x and vx against which the means are taken, ax,
-    the mouse's push and the margin turn), in float64."""
-    ids, d2, cols, own, flock, mouse, dt, _extent = args
-    d = lambda t: t.double()  # noqa: E731
-    live = ids >= 0
-    nx, ny, nvx, nvy = (torch.where(live, d(c), 0.0) for c in cols[:4])
-    ntype = torch.where(live, cols[4], 0.0).to(torch.int32)
-    x, y, vx, vy, ax, ay = (d(t) for t in own[:6])
-    pr, cf, af, mf, tf, _mg = (d(t) for t in flock)
-    d2 = d(d2)
-    not_mouse = live & (ntype != 0)
-    sep = not_mouse & (d2 < (pr * pr)[:, None]) & (d2 > 0)
-    same = not_mouse & ~sep & (ntype == own[6][:, None])
-    inv_n = 1.0 / same.sum(1).clamp(min=1).double()
-    inv_d2 = torch.where(sep, 1.0 / torch.where(sep, d2, 1.0), 0.0)
-    md2 = torch.where(live & (ids == 0), d2, 0.0).sum(1)
-    push = torch.where(md2 > 0, 1000.0 * dt / torch.where(md2 > 0, md2, 1.0), 0.0)
-    tols = []
-    for n_c, n_v, s, v, a, m in ((nx, nvx, x, vx, ax, d(mouse[2])),
-                                 (ny, nvy, y, vy, ay, d(mouse[3]))):
-        mag = (af * dt * (torch.where(sep, (n_c - s[:, None]).abs(), 0.0) * inv_d2).sum(1)
-               + cf * dt * (torch.where(same, n_c.abs(), 0.0).sum(1) * inv_n + s.abs())
-               + mf * dt * (torch.where(same, n_v.abs(), 0.0).sum(1) * inv_n + v.abs())
-               + a.abs() + push * (m - s).abs() + 2 * tf * dt)
-        tols.append((ids.shape[1] + 8) * 2.0**-22 * mag)
-    return tols
-
-
 def assert_kernel_matches(args, exact):
     before = cuda_kernels.boid_tick.launches
     kx, ky = boid_tick(*args)
@@ -325,7 +290,7 @@ def assert_kernel_matches(args, exact):
     if exact:
         assert torch.equal(kx, px) and torch.equal(ky, py)
         return
-    tx, ty = order_tolerance(args)
+    tx, ty = boid_order_tolerance(args)
     assert bool(((kx.double() - px.double()).abs() <= tx).all())
     assert bool(((ky.double() - py.double()).abs() <= ty).all())
 
@@ -338,7 +303,7 @@ def assert_kernel_matches(args, exact):
 def test_kernel_matches_plain_on_card(cuda, seed, dt, exact, down, mouse_x, gathered):
     """The kernel against the plain version on the card, on payload channel
     views and on gathered contiguous columns; bit for bit where the sums are
-    exact in any order, else within :func:`order_tolerance`."""
+    exact in any order, else within :func:`torch_scenes.boid_order_tolerance`."""
     sc = scene(seed, exact=exact, device=cuda)
     assert_kernel_matches(tick_args(sc, mouse_inputs(down, mouse_x, cuda), dt, gathered), exact)
 
@@ -395,7 +360,7 @@ def cell_args(device, seed=7, n=102_400, cells=25, cap=32):
 @pytest.mark.cuda
 def test_kernel_matches_plain_at_cell_shape(cuda):
     """The benchmark cell's shape, ``[102400, 800]`` slots of 6 payload
-    channels, within :func:`order_tolerance`."""
+    channels, within :func:`torch_scenes.boid_order_tolerance`."""
     args = cell_args(cuda)
     assert args[0].shape == (102_400, 800) and args[2][0].stride() == (4800, 6)
     assert_kernel_matches(args, exact=False)

@@ -3,12 +3,16 @@
 tiled passes K1, K2 and K3 (full cells, non-colliders among a cell's
 occupants, grids that are ragged against the tile or narrower than it,
 capacities 1 to 64, the capacity limit), K1's bit-for-bit pass-through of
-the slots it does not move, the wrappers' checks and launch counts (K4
-raising, not falling back, without its library), and the ported slices on
+the slots it does not move, a hand-made layout (a coincident pair, a
+full cell, a pile against the edges, entities outside the world), K4's
+placement at the probe's shapes, the wrappers' checks and launch counts (K4
+raising, not falling back, without its library), no kernel spilling
+registers, every case of the kernel table (``torch_scenes.CASES``) against
+its plain version and its scene's launch counts, and the ported slices on
 ``cuda`` against the same slices on ``cpu`` (the boids scene and its halo
 step included). Marked ``cuda``;
-each test skips without a card.
-On a machine with one, run them with
+each test skips without a card. The scenes' card tests are
+``tests/test_torch_cuda_scenes.py``. On a machine with one, run them with
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``
 (``--noconftest`` because the test directory's conftest sets up JAX, which
 these tests do not use).
@@ -22,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_scenes
 from multithreadedgameengine_tpu_torch.dryrun import rung_collectives
+from multithreadedgameengine_tpu_torch.ops import _build
 from multithreadedgameengine_tpu_torch.ops import cuda_kernels
 from multithreadedgameengine_tpu_torch.ops.cuda_kernels import (
     pair_pass_resident,
@@ -101,6 +107,69 @@ def test_k2_matches_plain_on_card(cuda, seed, n, cap, clamp):
     assert torch.equal(kc, pc) and int(kc.sum()) > 0
     assert (kx - px).abs().max().item() <= tol
     assert (ky - py).abs().max().item() <= tol
+
+
+def hand_made_layout(device):
+    """A layout made by hand: a pile against the world's left and bottom
+    edges with a static and a trigger in it, an exactly coincident pair,
+    one cell holding more entities than its capacity (two left out), and
+    moving entities outside ``[r, extent - r]`` on every side. Returns the
+    pass's arguments and the coincident pair's slots."""
+    pts = [
+        # pile at the bottom-left corner (world 300 x 200)
+        (6.0, 194.0, 6.0), (14.0, 194.0, 6.0), (8.0, 184.0, 6.0), (3.0, 188.0, 5.0),
+        # a static body and a trigger overlapping dynamic ones
+        (100.0, 100.0, 8.0), (110.0, 104.0, 6.0), (104.0, 110.0, 6.0),
+        # exactly coincident pair
+        (200.0, 60.0, 5.0), (200.0, 60.0, 5.0),
+        # six entities in one 30-unit cell of capacity 4
+        (245.0, 155.0, 4.0), (250.0, 158.0, 4.0), (255.0, 152.0, 4.0),
+        (248.0, 162.0, 4.0), (252.0, 150.0, 4.0), (258.0, 160.0, 4.0),
+        # moving entities past each border, two of them overlapping
+        (-4.0, 80.0, 5.0), (2.0, 84.0, 5.0), (303.0, 40.0, 6.0),
+        (150.0, -2.0, 4.0), (170.0, 205.0, 7.0),
+    ]
+    n = len(pts)
+    w = make_world(n, device)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    flag = lambda i: torch.arange(n, device=device) == i  # noqa: E731
+    on = torch.ones(n, dtype=torch.bool, device=device)
+    w = w.replace(
+        transform=w.transform.replace(active=on, x=f32([p[0] for p in pts]),
+                                      y=f32([p[1] for p in pts])),
+        rigid_body=w.rigid_body.replace(active=on, static=flag(4)),
+        collider=w.collider.replace(active=on, is_trigger=flag(5),
+                                    radius=f32([p[2] for p in pts])),
+    )
+    lay = build_layout(w, GridGeom(cell_size=30.0, rows=7, cols=10, capacity=4))
+    assert int((~lay.in_grid).sum()) == 2
+    args = (lay.scatter(w.transform.x), lay.scatter(w.transform.y), lay.radius, lay.meta, 17, 0.8)
+    return args, torch.stack([lay.flat[7], lay.flat[8]])
+
+
+@pytest.mark.parametrize("kernel,clamp", [("resident", False), ("symmetric", False),
+                                          ("symmetric", True)],
+                         ids=["K1", "K2", "K2_clamp"])
+def test_pair_passes_on_a_hand_made_layout_on_card(cuda, kernel, clamp):
+    """K1 and K2 (with and without its folded clamp) against their plain
+    versions on :func:`hand_made_layout`: the same contact counts, positions
+    within 2 ulps at the world's extent, the coincident pair pushed apart,
+    and with the clamp every moving entity inside the world."""
+    args, pair = hand_made_layout(cuda)
+    kw = {"clamp_bounds": (300.0, 200.0)} if clamp else {}
+    fn = getattr(cuda_kernels, f"pair_pass_{kernel}")
+    kx, ky, kc = fn(*args, **kw)
+    px, py, pc = getattr(cuda_kernels, f"pair_pass_{kernel}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 2 * float(np.spacing(np.float32(300.0)))
+    assert torch.equal(kc, pc) and int(kc.sum()) > 0
+    assert (kx - px).abs().max().item() <= tol and (ky - py).abs().max().item() <= tol
+    moved = ((kx.view(-1)[pair] != args[0].view(-1)[pair])
+             | (ky.view(-1)[pair] != args[1].view(-1)[pair]))
+    assert bool(moved.all())
+    if clamp:
+        occupied = args[3] != 0
+        assert bool(((kx[occupied] >= 0) & (kx[occupied] <= 300.0)).all())
 
 
 def random_grid(seed, n, cap, device, world=(600.0, 400.0), cell=30.0):
@@ -441,6 +510,7 @@ def k4_args(device, n, chunk, n_chunks, seed, empty_chunk=None):
     (20_000, 3 * 4096 + 8, 4, 1),  # chunks that are no multiple of the tile
     ("tile_edges", 3 * 4096 + 8, 4, None),  # the first and last slot of every tile
     (1, 128 * 1024, 66, None),  # one entity in 66 probe-sized chunks
+    (1_000_000, 128 * 1024, 66, None),  # the probe's 1M entities
 ])
 def test_k4_matches_plain_on_card(cuda, n, chunk, n_chunks, empty):
     from multithreadedgameengine_tpu_torch.ops.cuda_kernels import expand, expand_plain
@@ -454,6 +524,58 @@ def test_k4_matches_plain_on_card(cuda, n, chunk, n_chunks, empty):
     assert kx.shape == (n_chunks * 8, chunk // 8)
     assert torch.equal(kx.view(torch.int32), px.view(torch.int32))
     assert torch.equal(ky.view(torch.int32), py.view(torch.int32))
+
+
+def test_k4_places_every_entity_and_zeros_the_rest_on_card(cuda):
+    """One launch of K4 at the probe's shapes (``torch_scenes``' inputs):
+    every entity's x and y at its slot, +0.0 in every other slot."""
+    from multithreadedgameengine_tpu_torch.ops.cuda_kernels import expand
+
+    x, y, order, flat, bounds, total, chunk = torch_scenes.k4_inputs(
+        cuda, torch_scenes.K4_N, torch_scenes.K4_CHUNK, torch_scenes.K4_TOTAL, torch_scenes.SEED)
+    before = cuda_kernels.expand.launches
+    ox, oy = expand(x, y, order, flat, bounds, total, chunk)
+    assert cuda_kernels.expand.launches == before + 1
+    fl = flat.long()
+    assert torch.equal(ox.view(-1)[fl], x) and torch.equal(oy.view(-1)[fl], y)
+    empty = torch.ones(total, dtype=torch.bool, device=cuda)
+    empty[fl] = False
+    for out in (ox.view(-1)[empty], oy.view(-1)[empty]):
+        assert bool((out == 0).all()) and not bool(torch.signbit(out).any())
+
+
+@pytest.mark.parametrize("source", sorted(_build.ENTRY_POINTS))
+def test_kernel_does_not_spill_on_card(cuda, source):
+    """nvcc's ``-Xptxas -v`` report of each kernel source, built as the port
+    builds it: no kernel spills registers to local memory."""
+    _build.build()
+    report = _build.ptxas_report(_build.library_path(_build.CSRC / source))
+    spills = [line for line in report.splitlines() if "spill" in line]
+    assert spills and all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                          for line in spills), report
+
+
+@pytest.mark.parametrize("case", torch_scenes.CASES, ids=[c.id for c in torch_scenes.CASES])
+def test_kernel_table_case_on_card(cuda, case):
+    """Every case of the kernel table ``chip_smoke.py`` times: the launches
+    its scene made on the way to the inputs (``case.launches``: each main
+    path's pair pass once a substep, K3 once a substep a slab, a tick once
+    a frame), then the kernel on the case's inputs (layouts and slab grids
+    from frames of the scenes, K4 at the probe's shapes, the ticks on
+    captured frames and on the mixed cell's inputs) against its plain
+    version (``torch_scenes.compare``: bit for bit for the pair passes and
+    K4, within the summing-order tolerance for the ticks), one launch
+    through the wrapper."""
+    kernel = getattr(cuda_kernels, case.kernel)
+    kw = {} if case.clamp is None else {"clamp_bounds": case.clamp}
+    args, _seen = torch_scenes.scene_inputs(case, cuda)
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    assert kernel.launches == before + 1
+    want = getattr(cuda_kernels, f"{case.kernel}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    cmp = torch_scenes.compare(case, args, got, want)
+    assert cmp["ok"], cmp
 
 
 def test_k4_raises_without_its_library(cuda, monkeypatch):
@@ -548,7 +670,7 @@ def test_halo_boids_on_card_bit_equal_with_engine_step(cuda):
 
 def predators_scene(device, **kw):
     """The predators scene with the camera zoomed out over the world (every
-    light and caster on screen), as ``chip_smoke.py`` drives it."""
+    light and caster on screen), as ``torch_scenes.predators_engine`` builds it."""
     from multithreadedgameengine_tpu_torch.models.predators import make_predators_engine
 
     eng = make_predators_engine(device=device, **kw)
@@ -590,20 +712,30 @@ def test_predators_on_card_match_cpu(cuda):
     tol = 8 * float(np.spacing(np.float32(1600.0)))
     assert (a.transform.x - b.transform.x).abs().max().item() <= tol
     assert (a.transform.y - b.transform.y).abs().max().item() <= tol
+    for f in ("x", "y", "z"):
+        assert (getattr(a.particles, f) - getattr(b.particles, f)).abs().max().item() <= tol, f
+    # the active shadow sprites' floats within 8 ulps at each field's largest
+    # magnitude (atan2 is not correctly rounded on either)
+    on = b.shadow_sprites.active
+    for f in ("x", "y", "rotation", "scale_x", "scale_y", "alpha"):
+        u, v = getattr(a.shadow_sprites, f)[on], getattr(b.shadow_sprites, f)[on]
+        scale = max(v.abs().max().item(), 1e-30)
+        assert (u - v).abs().max().item() <= 8 * float(np.spacing(np.float32(scale))), f
     assert (a.decal_canvas.int() - b.decal_canvas.int()).abs().max().item() <= 1
     assert bool((b.decal_canvas[..., 3] > 0).any()) and bool(b.shadow_sprites.active.any())
 
 
 def test_predators_operating_point_runs_k1_once_a_frame(cuda):
     """BASELINE config 4 at full width on the card: 3 frames through
-    ``Engine.step``, K1 once a frame and no other kernel, every entity
-    binned, no overflow, finite, the shadow sprites capped."""
+    ``Engine.step``, K1 and the prey tick once a frame and no other kernel,
+    every entity binned, no overflow, finite, the shadow sprites capped."""
     eng = predators_scene(cuda)
     for fn in (cuda_kernels.pair_pass_resident, cuda_kernels.pair_pass_symmetric,
-               cuda_kernels.pair_pass_grid, cuda_kernels.expand):
+               cuda_kernels.pair_pass_grid, cuda_kernels.expand, cuda_kernels.prey_tick):
         fn.launches = 0
     m = eng.step(3, block=True)
-    assert cuda_kernels.pair_pass_resident.launches == 3
+    assert eng.world.step_count == 3
+    assert cuda_kernels.pair_pass_resident.launches == cuda_kernels.prey_tick.launches == 3
     assert (cuda_kernels.pair_pass_symmetric.launches, cuda_kernels.pair_pass_grid.launches,
             cuda_kernels.expand.launches) == (0, 0, 0)
     assert int(m["n_binned"]) == int(m["active_count"]) == 15_014

@@ -63,13 +63,49 @@ def test_port_runs_two_frames_without_jax():
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(REPO) for p in PORT.rglob("*.py"))
     + [Path("chip_smoke.py"), Path("torch_profile.py"), Path("kernel_ab.py"),
-       Path("mixed_drift.py")],
+       Path("mixed_drift.py"), Path("torch_scenes.py")],
     ids=str,
 )
 def test_source_has_no_jax_import(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|flax|multithreadedgameengine_tpu)\b",
                          text, re.M)
+
+
+def test_every_kernel_has_a_table_case_and_a_card_test():
+    """Each C launch function of ``ops/_build.ENTRY_POINTS`` has a case in
+    the kernel table ``chip_smoke.py`` times (``torch_scenes.CASES``), and
+    some ``cuda``-marked test calls its wrapper
+    (``ops.cuda_kernels.<launch name less "_launch">``) by name, so no
+    kernel goes untimed or unchecked on the card. Reads the test files and
+    ``chip_smoke.py``; imports ``torch_scenes``, which touches no card at
+    import."""
+    import ast
+
+    import torch_scenes
+    from multithreadedgameengine_tpu_torch.ops import _build
+
+    wrappers = {name[:-len("_launch")] for entries in _build.ENTRY_POINTS.values()
+                for name, _args, _res in entries if name.endswith("_launch")}
+    assert len(wrappers) == len(_build.ENTRY_POINTS) + 1  # boid_tick.cu holds two
+    assert wrappers == set(torch_scenes.KERNELS)
+    assert wrappers <= {case.kernel for case in torch_scenes.CASES}
+    assert all(set(case.launches) <= wrappers for case in torch_scenes.CASES)
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert re.search(r"^from torch_scenes import \([^)]*\bCASES\b", smoke, re.M)
+    assert "for case in CASES:" in smoke
+    named = set()
+    for path in sorted((REPO / "tests").glob("test_torch_*.py")):
+        text = path.read_text()
+        module_marked = re.search(r"^pytestmark = pytest\.mark\.cuda\b", text, re.M)
+        for node in ast.parse(text).body:
+            if not (isinstance(node, ast.FunctionDef) and node.name.startswith("test_")):
+                continue
+            if module_marked or any(ast.unparse(d).endswith("mark.cuda")
+                                    for d in node.decorator_list):
+                named |= {n.id if isinstance(n, ast.Name) else n.attr for n in ast.walk(node)
+                          if isinstance(n, (ast.Name, ast.Attribute))} & wrappers
+    assert named == wrappers, sorted(wrappers - named)
 
 
 def test_library_path_follows_the_headers(tmp_path):

@@ -18,9 +18,9 @@ none. Tolerances, each with its reason:
 - the kernel against the plain version where the sums are exact in float32
   in any order: bit for bit;
 - elsewhere only the order of each row's sums differs from ``torch.sum``:
-  the boid tick's bound (:func:`test_torch_boid_tick.order_tolerance`) with
+  the boid tick's bound (:func:`torch_scenes.boid_order_tolerance`) with
   the flee's terms added to the magnitudes and two more operations after
-  the sums, ``(S + 10) 2^-22 M`` (:func:`order_tolerance`).
+  the sums, ``(S + 10) 2^-22 M`` (:func:`torch_scenes.prey_order_tolerance`).
 """
 
 import hashlib
@@ -28,17 +28,15 @@ import hashlib
 import numpy as np
 import pytest
 import torch
-from test_torch_boid_tick import (
-    EMPTY_ROWS,
-    MOUSE_CASES,
-    bad_args,
-    mouse_inputs,
-    scene,
-    tick_args,
-    tick_ctx,
-)
+from test_torch_boid_tick import EMPTY_ROWS, MOUSE_CASES, bad_args, scene, tick_args, tick_ctx
 from test_torch_boid_tick import cell_args as boid_cell_args
-from test_torch_boid_tick import order_tolerance as boid_order_tolerance
+from torch_scenes import (
+    PRED,
+    boid_order_tolerance,
+    mixed_tick_args,
+    mouse_inputs,
+    prey_order_tolerance,
+)
 
 from multithreadedgameengine_tpu_torch.models import predators
 from multithreadedgameengine_tpu_torch.models.boids import (
@@ -51,7 +49,6 @@ from multithreadedgameengine_tpu_torch.models.predators import Prey, make_predat
 from multithreadedgameengine_tpu_torch.ops import cuda_kernels
 from multithreadedgameengine_tpu_torch.ops.cuda_kernels import prey_tick, prey_tick_plain
 
-PRED = 3  # the predators' entity type in the scenes (the boids' are 1 and 2, the mouse 0)
 #: rows whose neighbours hold no predator
 PREY_ONLY_ROWS = (12, 13, 14, 15)
 #: where the predators' d2 lies: as drawn (a third inside the protected
@@ -239,7 +236,7 @@ def test_order_tolerance_covers_the_flee():
     more room than the boid tick's bound gives them."""
     sc, factor = prey_scene(8, "outside")
     args = tick_args(sc, mouse_inputs(False, 0.0), 1.0)
-    tx, _ty = order_tolerance(args, factor, PRED)
+    tx, _ty = prey_order_tolerance(args, factor, PRED)
     bx, _by = boid_order_tolerance(args)
     ids, _d2, cols = args[:3]
     sees = ((ids >= 0) & (cols[4].to(torch.int32) == PRED)).any(1)
@@ -257,35 +254,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def order_tolerance(args, factor, predator_type, block=1 << 16):
-    """Per row, how far ``ax`` and ``ay`` may differ when only the order of
-    each row's sums differs: the boid tick's bound with the flee's terms
-    (``predator_avoid_factor dt |d| / d2`` of each predator left to the
-    hook) in the magnitudes and ``S + 10`` in place of ``S + 8``, in
-    float64, ``block`` rows at a time."""
-    ids, d2, cols, own, flock, mouse, dt, extent = args
-    n, s = ids.shape
-    tols = ([], [])
-    for r0 in range(0, n, block):
-        sl = slice(r0, r0 + block)
-        part = (ids[sl], d2[sl], [c[sl] for c in cols], [t[sl] for t in own],
-                [t[sl] for t in flock], mouse, dt, extent)
-        boid = boid_order_tolerance(part)
-        live = part[0] >= 0
-        ntype = torch.where(live, part[2][4], 0.0).to(torch.int32)
-        pd2 = part[1].double()
-        prot2 = (part[4][0].double() ** 2)[:, None]
-        sep = live & (ntype != 0) & (pd2 < prot2) & (pd2 > 0)
-        is_pred = live & (ntype == predator_type) & ~sep & (pd2 > 0)
-        inv = torch.where(is_pred, 1.0 / torch.where(is_pred, pd2, 1.0), 0.0)
-        pf = factor[sl].double() * dt
-        for k, (c, o) in enumerate(((part[2][0], part[3][0]), (part[2][1], part[3][1]))):
-            gap = torch.where(is_pred, (c.double() - o.double()[:, None]).abs(), 0.0)
-            flee = pf * (gap * inv).sum(1)
-            tols[k].append(boid[k] * ((s + 10) / (s + 8)) + (s + 10) * 2.0**-22 * flee)
-    return torch.cat(tols[0]), torch.cat(tols[1])
-
-
 def assert_kernel_matches(args, factor, exact):
     before = cuda_kernels.prey_tick.launches
     kx, ky = prey_tick(*args, factor, PRED)
@@ -295,7 +263,7 @@ def assert_kernel_matches(args, factor, exact):
     if exact:
         assert torch.equal(kx, px) and torch.equal(ky, py)
         return
-    tx, ty = order_tolerance(args, factor, PRED)
+    tx, ty = prey_order_tolerance(args, factor, PRED)
     assert bool(((kx.double() - px.double()).abs() <= tx).all())
     assert bool(((ky.double() - py.double()).abs() <= ty).all())
 
@@ -310,7 +278,7 @@ def test_kernel_matches_plain_on_card(cuda, seed, dt, exact, down, mouse_x, plac
                                       gathered):
     """The kernel against the plain version on the card, on payload channel
     views of stride 7 and on gathered contiguous columns; bit for bit where
-    the sums are exact in any order, else within :func:`order_tolerance`."""
+    the sums are exact in any order, else within :func:`torch_scenes.prey_order_tolerance`."""
     sc, factor = prey_scene(seed, placement, exact=exact, device=cuda)
     args = tick_args(sc, mouse_inputs(down, mouse_x, cuda), dt, gathered)
     assert_kernel_matches(args, factor, exact)
@@ -333,58 +301,13 @@ def test_kernel_reads_nothing_on_the_host(cuda):
     torch.cuda.synchronize()
 
 
-def cell_args(device, seed=7, n=1_000_000, cells=9, cap=64, channels=7):
-    """Inputs at the mixed cell's shape: ``[1000000, 576]`` slots (9 cells
-    of 64) with a payload of 7 channels, 0-12 live slots a cell as a prefix
-    (about 9.4% of them), the mouse in every 97th row's list, prey (type 2)
-    with 2% predators (type 3) and 1% lights (type 4) among the neighbours,
-    20% of d2 inside the protected range of 12.5, some at 0; the payload
-    filled in place, so the largest transient is one ``[n, 576]`` column."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    slots = cells * cap
-
-    def u(lo, hi, shape):
-        return torch.empty(shape, device=device).uniform_(lo, hi, generator=g)
-
-    k = torch.randint(0, 13, (n, cells, 1), generator=g, device=device, dtype=torch.int32)
-    live = (torch.arange(cap, device=device, dtype=torch.int32).view(1, 1, cap) < k)
-    live = live.view(n, slots)
-    del k
-    ids = torch.randint(1, n, (n, slots), generator=g, device=device, dtype=torch.int32)
-    ids.masked_fill_(~live, -1)
-    ids[::97, 0] = torch.where(live[::97, 0], 0, -1).to(torch.int32)
-    payload = torch.empty((n, slots, channels), device=device)
-    payload[..., 0] = ids
-    for c, (lo, hi) in zip(range(1, 5), ((0, 40824.0), (0, 16329.0), (-3, 3), (-3, 3))):
-        payload[..., c].uniform_(lo, hi, generator=g)
-    kind = u(0, 1, (n, slots))
-    payload[..., 5] = torch.where(kind < 0.02, 3.0, torch.where(kind < 0.03, 4.0, 2.0))
-    payload[..., 5].masked_fill_(ids == 0, 0.0)
-    payload[..., 6].uniform_(-1e4, 1e4, generator=g)
-    inside = u(0, 1, (n, slots)) < 0.2
-    d2 = torch.where(inside, u(1, 156.0, (n, slots)), u(156.25, 25600, (n, slots)))
-    d2.masked_fill_(kind > 0.995, 0.0)
-    d2.masked_fill_(~live, 0.0)
-    del inside, kind, live
-    zero = torch.zeros(n, device=device)
-    own = (u(0, 40824.0, n), u(0, 16329.0, n), u(-3, 3, n), u(-3, 3, n), zero, zero,
-           torch.full((n,), 2, dtype=torch.int32, device=device))
-    flock = [torch.full((n,), v, device=device) for v in (12.5, 0.0005, 6.0, 0.05, 0.001, 20.0)]
-    inputs = mouse_inputs(True, 20000.0, device)
-    mouse = (inputs.mouse_buttons[0], inputs.mouse_x,
-             torch.tensor(20000.0, device=device), torch.tensor(8000.0, device=device))
-    cols = [payload[..., c] for c in range(1, 6)]
-    return (ids, d2, cols, own, flock, mouse, 1.0, (40824.83, 16329.93)), torch.full(
-        (n,), 10.0, device=device)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("gathered", [False, True], ids=["payload", "gathered"])
 def test_kernel_matches_plain_at_cell_shape(cuda, gathered):
     """The mixed cell's shape, ``[1000000, 576]`` slots of 7 payload
     channels, as payload views and as gathered columns, within
-    :func:`order_tolerance`."""
-    args, factor = cell_args(cuda)
+    :func:`torch_scenes.prey_order_tolerance`."""
+    args, factor = mixed_tick_args(cuda)
     assert args[0].shape == (1_000_000, 576) and args[2][0].stride() == (576 * 7, 7)
     if gathered:
         args = (*args[:2], [c.contiguous() for c in args[2]], *args[3:])
