@@ -13,7 +13,8 @@
    ``PERF.md`` §6 reports (``torch_scenes.py``'s ``CASES``: layouts
    and slab grids taken from frames of the scenes and of the benchmark
    cells' scenes run through their main paths, K4 at the probe's shapes,
-   the ticks on captured frames and on the mixed cell's inputs). The
+   the ticks on captured frames and on the mixed cell's inputs, the
+   neighbour build on frames of both cells' scenes). The
    launches each scene made are checked against the case's and kept in
    its row. Each case is held against its plain version (``compare``),
    then timed beside it (:func:`time_kernel`: the kernel as one replay of
@@ -202,6 +203,16 @@ def tick_bounds(args, row_fields: int, payload_bytes: int):
             ((4 + 4 + payload_bytes) * n * s + rows) / PEAK_BYTES_S * 1e3, live / (n * s))
 
 
+def build_bound(got) -> float:
+    """The neighbour build's bound in ms: its outputs written once, (F + 2)
+    x 4 B a slot (the payload record, the id and d2) and 4 B a row (the
+    count). The table it reads is L2's (tens of MB, each cell read by every
+    row around it), and the rows' own fields are 20 B a row: neither is
+    counted."""
+    ids, _d2, count, payload = got
+    return (4 * (payload.shape[2] + 2) * ids.numel() + 4 * count.numel()) / PEAK_BYTES_S * 1e3
+
+
 # ---------------------------------------------------------------------------
 # one case: checked, bounded, timed
 # ---------------------------------------------------------------------------
@@ -219,6 +230,10 @@ def figures(case, args, got) -> dict:
     elif case.kernel == "expand":
         b = (k4_bound(args), "bytes")
         out.update(shape=list(got[0].shape), entities=args[0].numel(), **ck.expand_plan(args[5]))
+    elif case.kernel == "neighbor_build":
+        b = (build_bound(got), "bytes")
+        m, s = got[0].shape
+        out.update(shape=list(got[3].shape), kept_share=int(got[2].sum().item()) / (m * s))
     else:
         prey = case.kernel == "prey_tick"
         live_ms, full_ms, share = tick_bounds(
@@ -266,10 +281,11 @@ def run_case(case, dev) -> dict:
     row = {"kernel": case.kernel, "inputs": case.inputs, **figures(case, args, got),
            "max_abs_err": cmp["max_abs_err"],
            "launches": {k: n for k, n in seen.items() if n}}
-    ms, plain_ms = time_kernel(kernel, plain, args, case.reps, **kw)
-    row.update(ms=ms, plain_ms=plain_ms, share_of_bound=row["bound_ms"] / ms)
     if case.kernel == "expand":
         row["library_ms"] = yardstick_ms(args, got)
+    del got, want  # the mixed cell's lists are 20.7 GB a side
+    ms, plain_ms = time_kernel(kernel, plain, args, case.reps, **kw)
+    row.update(ms=ms, plain_ms=plain_ms, share_of_bound=row["bound_ms"] / ms)
     return row
 
 

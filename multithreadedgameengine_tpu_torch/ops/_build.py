@@ -49,6 +49,9 @@ ENTRY_POINTS = {
         ("expand_launch", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
         ("expand_plan", [_I, _P], _I),
     ),
+    "neighbor_build.cu": (
+        ("neighbor_build_launch", [_P] * 10 + [_I] * 8 + [_P], _I),
+    ),
     "pair_pass_grid.cu": (
         ("pair_pass_grid_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P], _I),
         ("pair_pass_grid_max_cap", [], _I),

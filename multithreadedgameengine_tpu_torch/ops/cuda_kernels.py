@@ -42,6 +42,12 @@ new accelerations in one pass over each row's neighbour slots, one warp a
 row, loading d2 and the payload only for live slots; :func:`prey_tick`, the
 same source's flee instantiation, gives ``Prey.tick``'s.
 
+The neighbour build replaces no TPU kernel either (the JAX package builds
+its lists in XLA): :func:`neighbor_build`, source ``csrc/neighbor_build.cu``,
+gives ``ops.spatial``'s lists (ids, d2, count, payload) of a range of rows
+straight from the binned table, one warp a row, in place of the assembled
+candidate rows and the acceptance's passes over them.
+
 ``ops/_build.py`` compiles the sources with nvcc at first use and binds them
 with ctypes.
 
@@ -835,3 +841,108 @@ def prey_tick(ids: Tensor, d2: Tensor, cols, own, flock, mouse, dt_ratio: float,
 
 
 prey_tick.launches = 0
+
+
+def _check_neighbor_build(table: Tensor, cell_id: Tensor, order: Tensor, x: Tensor, y: Tensor,
+                          visual_range: Tensor, start: int, rows: int, cols: int, radius: int,
+                          k: int) -> None:
+    if table.dim() != 3 or table.shape[2] < 3:
+        raise ValueError(f"table must be [cells + 1, cap, F >= 3], got {tuple(table.shape)}")
+    if table.shape[0] != rows * cols + 1:
+        raise ValueError(f"table has {table.shape[0]} rows, the grid {rows} x {cols} + 1")
+    if radius < 0 or k < 0:
+        raise ValueError(f"radius {radius} and k {k} must be >= 0")
+    n, m = x.shape[0] if x.dim() == 1 else -1, order.shape[0] if order.dim() == 1 else -1
+    if n >= 2**24:
+        raise ValueError("neighbor table packs ids into f32: N must be < 2^24")
+    if not (0 <= start and 0 <= m and start + m <= n):
+        raise ValueError(f"rows {start} .. {start + m} lie outside the {n} entities")
+    for name, t, dtype, shape in (
+        ("table", table, torch.float32, tuple(table.shape)),
+        ("cell_id", cell_id, torch.int32, (n,)), ("order", order, torch.int64, (m,)),
+        ("x", x, torch.float32, (n,)), ("y", y, torch.float32, (n,)),
+        ("visual_range", visual_range, torch.float32, (n,)),
+    ):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def neighbor_build_plain(table: Tensor, cell_id: Tensor, order: Tensor, x: Tensor, y: Tensor,
+                         visual_range: Tensor, start: int, rows: int, cols: int, radius: int,
+                         k: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The neighbour lists of rows ``start .. start + M - 1`` in plain
+    PyTorch: ``ops.spatial``'s cell-major assembly
+    (:func:`~.spatial.cellmajor_table`, then each row's cell) and
+    :func:`~.spatial.accept_candidates`, unchanged.
+
+    ``table``: the binned f32 ``[rows * cols + 1, cap, F]`` records (channel
+    0 the id, -1 empty; then x, y; the last row the all-empty sentinel);
+    ``cell_id``: int32 ``[N]``, each entity's cell, ``rows * cols`` for one
+    that is not valid (inactive or not finite); ``order``: int64 ``[M]``,
+    the rows (relative to ``start``) in the order the kernel visits them, a
+    permutation of ``0 .. M - 1`` that changes no output; ``x``, ``y``,
+    ``visual_range``: f32 ``[N]``; ``radius``: the scan radius in cells;
+    ``k``: max_neighbors. Returns ids int32 ``[M, S]``, d2 f32 ``[M, S]``,
+    count int32 ``[M]`` and the payload f32 ``[M, S, F]``, S = (2 radius +
+    1)^2 cap, in row-major scan order."""
+    from .spatial import accept_candidates, cellmajor_table
+
+    _check_neighbor_build(table, cell_id, order, x, y, visual_range, start, rows, cols,
+                          radius, k)
+    sl = slice(start, start + order.shape[0])
+    cid = cell_id[sl]
+    flat = cellmajor_table(table, rows, cols, radius)[cid.to(torch.int64)]
+    self_ids = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=x.device)
+    lists = accept_candidates(flat, x[sl], y[sl], self_ids, visual_range[sl],
+                              cid < rows * cols, k, None)
+    return lists.ids, lists.d2, lists.count, flat
+
+
+def neighbor_build(table: Tensor, cell_id: Tensor, order: Tensor, x: Tensor, y: Tensor,
+                   visual_range: Tensor, start: int, rows: int, cols: int, radius: int,
+                   k: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One neighbour build (see :func:`neighbor_build_plain` for the
+    contract). CPU tensors run the plain version; CUDA tensors launch the
+    kernel on the current stream, one warp a row in ``order``, and raise if
+    the launch is refused. Every output equals the plain version's bit for
+    bit."""
+    _check_neighbor_build(table, cell_id, order, x, y, visual_range, start, rows, cols,
+                          radius, k)
+    if x.device.type == "cpu":
+        return neighbor_build_plain(table, cell_id, order, x, y, visual_range, start, rows,
+                                    cols, radius, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"neighbor_build runs on cpu or cuda, not {x.device}")
+    from . import _build
+
+    lib = _build.load()
+    m, cap, f = order.shape[0], table.shape[1], table.shape[2]
+    slots = (2 * radius + 1) ** 2 * cap
+    dev = x.device
+    ids = torch.empty((m, slots), dtype=torch.int32, device=dev)
+    d2 = torch.empty((m, slots), dtype=torch.float32, device=dev)
+    count = torch.empty((m,), dtype=torch.int32, device=dev)
+    payload = torch.empty((m, slots, f), dtype=torch.float32, device=dev)
+    if m == 0:
+        return ids, d2, count, payload
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.neighbor_build_launch(
+            table.data_ptr(), cell_id.data_ptr(), order.data_ptr(), x.data_ptr(), y.data_ptr(),
+            visual_range.data_ptr(), ids.data_ptr(), d2.data_ptr(), count.data_ptr(),
+            payload.data_ptr(), int(start), m, int(rows), int(cols), int(radius), cap, f, int(k),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"neighbor_build: CUDA launch failed with error {err}")
+    neighbor_build.launches += 1
+    return ids, d2, count, payload
+
+
+neighbor_build.launches = 0

@@ -7,7 +7,10 @@ f32 ``table_values`` rows), ``NeighborPayload``, ``NeighborLists``,
 (``neighbor_lists_grid`` in both assembly forms, ``neighbor_lists_by_class``
 and the O(N^2) ``neighbor_lists_bruteforce``) behind ``neighbor_lists``.
 The reference writes these in XLA, not Pallas, so here they are plain torch
-ops on whichever device the tensors are on.
+ops, except that both grid functions hand each list's assembly and
+acceptance to ``ops.cuda_kernels.neighbor_build``: on the card one
+hand-written kernel that reads the binned table in place, on the CPU its
+plain version, the cell-major form.
 
 Translation: the stable argsort is ``torch.sort(stable=True)``, the
 associative max-scan is ``torch.cummax``, the rank inverse is a scatter
@@ -59,6 +62,7 @@ class BinTable(Struct):
     row: torch.Tensor  # int32[N] clamped cell row
     col: torch.Tensor  # int32[N] clamped cell col
     n_binned: torch.Tensor  # int32 scalar
+    order: torch.Tensor  # int64[N]: the entities in cell order (the stable sort)
 
 
 def _cell_coord(v: torch.Tensor, inv: float, n: int) -> torch.Tensor:
@@ -139,7 +143,7 @@ def bin_entities(
         n_binned = torch.sum(valid, dtype=torch.int32)
     return BinTable(
         table=table, cell_id=cell_id, rank=rank, row=row, col=col,
-        n_binned=n_binned,
+        n_binned=n_binned, order=order,
     )
 
 
@@ -248,6 +252,22 @@ def cellmajor_table(table: torch.Tensor, rows_n: int, cols: int, r: int) -> torc
     return torch.cat([nbh, sentinel])
 
 
+def gathered_candidates(table: torch.Tensor, row: torch.Tensor, col: torch.Tensor, rows_n: int,
+                        cols: int, r: int) -> torch.Tensor:
+    """The per-entity assembly (spatial.py:294-306): each entity's ``(2r+1)^2``
+    cells around its clamped ``row``/``col``, row-major, gathered from the
+    padded table, out-of-world cells as the sentinel row: ``[N, (2r+1)^2 *
+    cap, F]``."""
+    offs = torch.arange(-r, r + 1, dtype=torch.int32, device=table.device)
+    off_r = offs.repeat_interleave(2 * r + 1)  # row-major: row outer
+    off_c = offs.repeat(2 * r + 1)
+    cand_row = row[:, None] + off_r[None, :]
+    cand_col = col[:, None] + off_c[None, :]
+    in_bounds = (cand_row >= 0) & (cand_row < rows_n) & (cand_col >= 0) & (cand_col < cols)
+    cand_cell = torch.where(in_bounds, cand_row * cols + cand_col, rows_n * cols)
+    return table[cand_cell.to(torch.int64)].view(row.shape[0], -1, table.shape[2])
+
+
 def accept_candidates(flat, x, y, self_ids, visual_range, valid_entity, k: int,
                       n_binned: torch.Tensor) -> NeighborLists:
     """The exact acceptance test ``0 < d^2 < visual_range^2`` over assembled
@@ -265,58 +285,67 @@ def accept_candidates(flat, x, y, self_ids, visual_range, valid_entity, k: int,
                          payload=NeighborPayload(data=flat))
 
 
+def _lists(built, n_binned: torch.Tensor) -> NeighborLists:
+    """``neighbor_build``'s (ids, d2, count, payload) as lists."""
+    ids, d2, count, payload = built
+    return NeighborLists(ids=ids, d2=d2, count=count, n_binned=n_binned,
+                         payload=NeighborPayload(data=payload))
+
+
 def neighbor_lists_grid(x, y, active, visual_range, cfg: EngineConfig,
                         extra_fields=()) -> NeighborLists:
     """Hash-grid neighbour search (spatial.py:229-327). ``extra_fields``:
     ``[N]`` tensors whose per-candidate values ride the table rows as
     channels 3.. (:class:`NeighborPayload`).
 
-    Two assembly forms with identical slot order, picked by the reference's
-    rule: the cell-major form (:func:`cellmajor_table`, then one row per
-    entity) while its table fits :data:`CELLMAJOR_BUDGET_BYTES`, else the
-    per-entity gather of the ``(2R+1)^2`` candidate cells."""
+    One call of ``neighbor_build`` over every row, in the binning's cell
+    order: on the card its kernel, on the CPU its plain version, the
+    cell-major form (:func:`cellmajor_table`, then one row per entity). On
+    the CPU the reference's rule still applies: when the cell-major table
+    would pass :data:`CELLMAJOR_BUDGET_BYTES`, the per-entity gather of the
+    ``(2R+1)^2`` candidate cells (:func:`gathered_candidates`) takes its
+    place. Both give the same ids, d2 and counts; the payload rows of
+    entities that are not valid are the empty sentinel's in the cell-major
+    form and on the card, the cells around their clamped coordinates in the
+    gather form."""
+    from .cuda_kernels import neighbor_build
+
     sp = cfg.spatial
     cells, cols, rows_n = cfg.total_cells, cfg.grid_cols, cfg.grid_rows
     radius = max(1, sp.max_cell_radius)
     bins, valid_entity, arange_n = _grid_bins(x, y, active, cfg, extra_fields)
-    n = x.shape[0]
     cap, f_ch = sp.cell_capacity, bins.table.shape[2]
     b_cells = (2 * radius + 1) ** 2
-    if (cells + 1) * b_cells * cap * f_ch * 4 <= CELLMAJOR_BUDGET_BYTES:
-        flat = cellmajor_table(bins.table, rows_n, cols, radius)[bins.cell_id.to(torch.int64)]
-    else:
-        offs = torch.arange(-radius, radius + 1, dtype=torch.int32, device=x.device)
-        off_r = offs.repeat_interleave(2 * radius + 1)  # row-major: row outer
-        off_c = offs.repeat(2 * radius + 1)
-        cand_row = bins.row[:, None] + off_r[None, :]
-        cand_col = bins.col[:, None] + off_c[None, :]
-        in_bounds = (cand_row >= 0) & (cand_row < rows_n) & (cand_col >= 0) & (cand_col < cols)
-        cand_cell = torch.where(in_bounds, cand_row * cols + cand_col, cells)
-        flat = bins.table[cand_cell.to(torch.int64)].view(n, -1, f_ch)
-    return accept_candidates(flat, x, y, arange_n, visual_range, valid_entity,
-                             sp.max_neighbors, bins.n_binned)
+    if x.device.type == "cpu" and (cells + 1) * b_cells * cap * f_ch * 4 > CELLMAJOR_BUDGET_BYTES:
+        flat = gathered_candidates(bins.table, bins.row, bins.col, rows_n, cols, radius)
+        return accept_candidates(flat, x, y, arange_n, visual_range, valid_entity,
+                                 sp.max_neighbors, bins.n_binned)
+    xc, yc, vc = x.contiguous(), y.contiguous(), visual_range.contiguous()
+    return _lists(neighbor_build(bins.table, bins.cell_id, bins.order, xc, yc, vc, 0, rows_n,
+                                 cols, radius, sp.max_neighbors), bins.n_binned)
 
 
 def neighbor_lists_by_class(x, y, active, visual_range, cfg: EngineConfig, extra_fields,
                             ranges) -> Tuple[Dict[str, NeighborLists], torch.Tensor]:
     """Per-class candidate assembly at per-class scan radii
     (spatial.py:330-423). ``ranges``: ``(name, start, count, radius)`` of
-    each class's contiguous slot range. Bins once, builds one cell-major
-    table per distinct radius, and gathers each class's rows from its
-    radius's table; acceptance, slot order and truncation per row are
+    each class's contiguous slot range. Bins once, then each class is one
+    call of ``neighbor_build`` over its rows, in the order of one stable
+    sort of their cells (on the CPU its plain version, the cell-major form);
+    acceptance, slot order and truncation per row are
     :func:`neighbor_lists_grid`'s. Returns ({name: lists of the class's
     rows}, n_binned)."""
-    bins, valid_entity, arange_n = _grid_bins(x, y, active, cfg, extra_fields)
-    nbh_by_r = {r: cellmajor_table(bins.table, cfg.grid_rows, cfg.grid_cols, r)
-                for r in sorted({r for _n, _s, _c, r in ranges})}
+    from .cuda_kernels import neighbor_build
+
+    bins, _valid, _ids = _grid_bins(x, y, active, cfg, extra_fields)
+    rows_n, cols, k = cfg.grid_rows, cfg.grid_cols, cfg.spatial.max_neighbors
+    xc, yc, vc = x.contiguous(), y.contiguous(), visual_range.contiguous()
     out = {}
     for name, start, count, r in ranges:
-        sl = slice(start, start + count)
         with span(f"spatial.{name}"):
-            flat = nbh_by_r[r][bins.cell_id[sl].to(torch.int64)]
-            out[name] = accept_candidates(flat, x[sl], y[sl], arange_n[sl], visual_range[sl],
-                                          valid_entity[sl], cfg.spatial.max_neighbors,
-                                          bins.n_binned)
+            order = torch.sort(bins.cell_id[start:start + count], stable=True).indices
+            out[name] = _lists(neighbor_build(bins.table, bins.cell_id, order, xc, yc, vc, start,
+                                              rows_n, cols, r, k), bins.n_binned)
     return out, bins.n_binned
 
 

@@ -727,15 +727,18 @@ def test_predators_on_card_match_cpu(cuda):
 
 def test_predators_operating_point_runs_k1_once_a_frame(cuda):
     """BASELINE config 4 at full width on the card: 3 frames through
-    ``Engine.step``, K1 and the prey tick once a frame and no other kernel,
-    every entity binned, no overflow, finite, the shadow sprites capped."""
+    ``Engine.step``, K1, the neighbour build and the prey tick once a frame
+    and no other kernel, every entity binned, no overflow, finite, the
+    shadow sprites capped."""
     eng = predators_scene(cuda)
     for fn in (cuda_kernels.pair_pass_resident, cuda_kernels.pair_pass_symmetric,
-               cuda_kernels.pair_pass_grid, cuda_kernels.expand, cuda_kernels.prey_tick):
+               cuda_kernels.pair_pass_grid, cuda_kernels.expand, cuda_kernels.prey_tick,
+               cuda_kernels.neighbor_build):
         fn.launches = 0
     m = eng.step(3, block=True)
     assert eng.world.step_count == 3
-    assert cuda_kernels.pair_pass_resident.launches == cuda_kernels.prey_tick.launches == 3
+    assert (cuda_kernels.pair_pass_resident.launches == cuda_kernels.prey_tick.launches
+            == cuda_kernels.neighbor_build.launches == 3)
     assert (cuda_kernels.pair_pass_symmetric.launches, cuda_kernels.pair_pass_grid.launches,
             cuda_kernels.expand.launches) == (0, 0, 0)
     assert int(m["n_binned"]) == int(m["active_count"]) == 15_014

@@ -52,11 +52,11 @@ def cuda():
 
 def assert_launches(seen=None, **counts):
     """The launches since :func:`zero_launches` (or ``seen``): ``counts``
-    where given, and none of the pair passes and K4 where not; a tick not
-    given is not counted."""
+    where given, and none of the pair passes and K4 where not; a tick or
+    the neighbour build not given is not counted."""
     seen = launches() if seen is None else seen
     for name in KERNELS:
-        if name in counts or not name.endswith("_tick"):
+        if name in counts or name in scenes.PAIR_PASSES + ("expand",):
             assert seen[name] == counts.get(name, 0), (name, seen)
 
 
@@ -214,8 +214,8 @@ def test_ladder_1m_runs_resident_banded_and_lazy_with_k2_on_card(cuda):
 
 def test_boids_15k_runs_k1_and_the_boid_tick_once_a_frame_on_card(cuda):
     """BASELINE config 3, 15,000 boids and the mouse, 5 + 20 frames: K1
-    once a substep and the boid tick once a frame, no other kernel; every
-    boid binned."""
+    once a substep, the neighbour build and the boid tick once a frame, no
+    other kernel; every boid binned."""
     eng = scenes.boids_engine(cuda, scenes.BOIDS_N, scenes.BOIDS_WORLD, scenes.CONFIG3_SPATIAL)
     zero_launches()
     eng.step(5, block=True)
@@ -224,7 +224,7 @@ def test_boids_15k_runs_k1_and_the_boid_tick_once_a_frame_on_card(cuda):
     m = host_ints(eng.metrics)
     assert eng.world.step_count == 25 and finite(eng.world) and m["nonfinite_count"] == 0
     assert_launches(pair_pass_resident=25 * eng.config.physics.sub_step_count,
-                                boid_tick=25)
+                    boid_tick=25, neighbor_build=25)
     assert m["n_binned"] in (scenes.BOIDS_N, scenes.BOIDS_N + 1)
 
 
@@ -243,8 +243,8 @@ def test_boids_cell_scene_runs_the_boid_tick_once_a_frame_on_card(cuda):
 
 def test_neighbour_solver_on_the_demo_scene_launches_no_kernel_on_card(cuda):
     """The demo scene with ``solver="neighbors"``, 5 + 20 frames: the
-    frame runs the neighbour-list solver and launches no kernel; every
-    entity binned, finite."""
+    frame runs the neighbour-list solver and launches no kernel but the
+    neighbour build, once a frame; every entity binned, finite."""
     from multithreadedgameengine_tpu_torch.models.balls import make_balls_engine
 
     eng = make_balls_engine(n_balls=scenes.N_MAIN, seed=SEED, device=cuda,
@@ -256,7 +256,7 @@ def test_neighbour_solver_on_the_demo_scene_launches_no_kernel_on_card(cuda):
     m = host_ints(eng.metrics)
     assert finite(eng.world) and m["nonfinite_count"] == 0
     assert eng._plan.solver_geom is None and eng._plan.need_neighbors
-    assert_launches()
+    assert_launches(neighbor_build=25)
     assert m["n_binned"] == m["active_count"]
 
 
@@ -498,8 +498,8 @@ def test_halo_boids_scene_bit_equal_with_engine_step_on_card(cuda, how):
     zero_launches()
     es.step(10, block=True)
     subs = es.config.physics.sub_step_count
-    assert_launches(k3, pair_pass_grid=10 * subs * scenes.HALO_SLABS)
-    assert_launches(pair_pass_resident=10 * subs)
+    assert_launches(k3, pair_pass_grid=10 * subs * scenes.HALO_SLABS, neighbor_build=0)
+    assert_launches(pair_pass_resident=10 * subs, neighbor_build=10)
     m = host_ints(m)
     assert m["route_overflow_solver"] == 0 and m.get("route_overflow_logic", 0) == 0
     assert m.get("home_violators", 0) == 0 and m["n_binned"] == scenes.HALO_BOIDS_N
@@ -529,7 +529,7 @@ def test_predators_blood_lands_on_card(cuda):
     assert all(b <= a for a, b in zip(live, live[1:])), live
     assert int((w.decal_canvas != canvas0).any(-1).sum()) > 0 and int(w.decal_dirty.sum()) > 0
     assert_launches(pair_pass_resident=100 * eng.config.physics.sub_step_count,
-                                prey_tick=100)
+                    prey_tick=100, neighbor_build=100)
 
 
 def test_predators_events_chunk_does_not_wait_and_fires_the_blood_hook_on_card(cuda):
@@ -573,7 +573,7 @@ def test_predators_events_chunk_does_not_wait_and_fires_the_blood_hook_on_card(c
     w, m = eng.world, host_ints(eng.metrics)
     assert w.step_count == 245 and finite(w) and m["nonfinite_count"] == 0
     subs = eng.config.physics.sub_step_count
-    assert_launches(pair_pass_resident=245 * subs, prey_tick=245)
+    assert_launches(pair_pass_resident=245 * subs, prey_tick=245, neighbor_build=245)
     assert m["solver_overflow"] == 0
     assert totals["stay"] > 0 and totals["blood"] > 0, totals
     assert int((w.decal_canvas != canvas0).any(-1).sum()) > 0
@@ -999,7 +999,7 @@ def test_render_server_serves_a_client_on_card(cuda, scene):
         client.stop.set()
         srv.stop()
     subs = eng.config.physics.sub_step_count
-    kw = {} if scene == "balls_10k" else {"prey_tick": 80}
+    kw = {} if scene == "balls_10k" else {"prey_tick": 80, "neighbor_build": 80}
     assert_launches(counted, pair_pass_resident=80 * subs, **kw)
     steps = [f["step"] for f in client.frames]
     assert steps and steps == sorted(steps)

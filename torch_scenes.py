@@ -74,9 +74,12 @@ PRED_WARMUP, PRED_FRAMES, PRED_BLOOD_FRAMES = 5, 20, 100
 #: the predators' entity type in the tick tests' scenes (the boids' are 1
 #: and 2, the mouse 0)
 PRED = 3
+#: frames of the mixed cell's scene before the neighbour build's frame is
+#: captured
+MIXED_BUILD_FRAMES = 5
 PAIR_PASSES = ("pair_pass_resident", "pair_pass_symmetric", "pair_pass_grid")
 #: every kernel's wrapper in ``ops.cuda_kernels``
-KERNELS = (*PAIR_PASSES, "expand", "boid_tick", "prey_tick")
+KERNELS = (*PAIR_PASSES, "expand", "boid_tick", "prey_tick", "neighbor_build")
 
 
 def card_name_and_limit() -> str:
@@ -221,15 +224,21 @@ def churn_frames(eng, rng, count, churn, chunk, world=(8900.0, 1000.0)):
     return t1 - t0, time.perf_counter() - t1
 
 
-def cell_engine(dev, config):
+def cell_engine(dev, config, n=None):
     """A benchmark cell's scene (``bench_port/configs/<config>.json``)
-    built by the benchmark's own scene builder at ``SEED``."""
+    built by the benchmark's own scene module at ``SEED``; ``n``: that
+    many boids (or prey) in place of the configuration's, in its world
+    scaled to keep its density."""
     import importlib
     import json
     from pathlib import Path
 
     cfg = json.loads((Path(__file__).resolve().parent / "bench_port" / "configs"
                       / f"{config}.json").read_text())
+    if n is not None:
+        s = (n / cfg["n_boids"]) ** 0.5
+        cfg.update(n_boids=n, world_width=cfg["world_width"] * s,
+                   world_height=cfg["world_height"] * s)
     return importlib.import_module(f"bench_port.scenes.{cfg['scene']}").build(
         cfg, SEED, dev).engine
 
@@ -343,25 +352,42 @@ def k4_inputs(dev, n, chunk, total, seed, empty_chunk=None):
     return (x, y, order, flat, bounds, total, chunk)
 
 
+def captured_calls(eng, module, name):
+    """The arguments of every call of ``module.name`` in the next frame of
+    ``eng`` (that frame is run). A wrapper captured in its own module counts
+    its launches on the name it is called by, the capture's while it runs:
+    they are added to its own after."""
+    seen, real = [], getattr(module, name)
+
+    def capture(*args):
+        seen.append(args)
+        return real(*args)
+
+    before = capture.launches = getattr(real, "launches", 0)
+    setattr(module, name, capture)
+    try:
+        eng.step(1)
+    finally:
+        setattr(module, name, real)
+        if hasattr(real, "launches"):
+            real.launches += capture.launches - before
+    return seen
+
+
 def captured_tick_args(eng, kernel):
     """The arguments the model hands ``kernel`` in the next frame of
     ``eng`` (that frame is run): ``Boid.tick``'s to ``boid_tick``, or
     ``Prey.tick``'s to ``prey_tick``."""
     from multithreadedgameengine_tpu_torch.models import boids, predators
 
-    module = boids if kernel == "boid_tick" else predators
-    seen, real = [], getattr(module, kernel)
+    return captured_calls(eng, boids if kernel == "boid_tick" else predators, kernel)[0]
 
-    def capture(*args):
-        seen.append(args)
-        return real(*args)
 
-    setattr(module, kernel, capture)
-    try:
-        eng.step(1)
-    finally:
-        setattr(module, kernel, real)
-    return seen[0]
+def captured_build_args(eng, start=0):
+    """The arguments ``ops.spatial`` hands ``neighbor_build`` for the list
+    of rows from ``start`` in the next frame of ``eng`` (that frame is run):
+    the global list's, or a class's on a per-class plan."""
+    return next(a for a in captured_calls(eng, kernels(), "neighbor_build") if a[6] == start)
 
 
 def boids_cell_frame(dev):
@@ -373,6 +399,35 @@ def boids_cell_frame(dev):
     eng.input.mouse_button(0, True)
     eng.step(CELL_BOIDS_FRAMES, block=True)
     return captured_tick_args(eng, "boid_tick")
+
+
+def boids_cell_build(dev):
+    """The neighbour build's arguments on the boids benchmark cell's boids,
+    world and grid (:func:`boids_cell_frame`'s scene and frame)."""
+    eng = boids_engine(dev, CELL_BOIDS_N, CELL_BOIDS_WORLD, CONFIG3_SPATIAL)
+    eng.input.set_mouse(CELL_BOIDS_WORLD[0] / 2, CELL_BOIDS_WORLD[1] / 2)
+    eng.input.mouse_button(0, True)
+    eng.step(CELL_BOIDS_FRAMES, block=True)
+    return captured_build_args(eng)
+
+
+def mixed_cell_build(name):
+    """The neighbour build's arguments for class ``name``'s list on the
+    mixed benchmark cell's scene after ``MIXED_BUILD_FRAMES`` frames. The
+    scene (39 GB on the card) is freed before the inputs are returned."""
+    def inputs(dev):
+        import gc
+
+        import torch
+
+        eng = cell_engine(dev, "mixed_1m")
+        eng.step(MIXED_BUILD_FRAMES, block=True)
+        args = captured_build_args(eng, eng.classes[name].start_index)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return args
+    return inputs
 
 
 def mouse_inputs(down, mouse_x, device="cpu"):
@@ -526,25 +581,36 @@ class Case(NamedTuple):
 # once a frame (a slab) of its class; the synthetic inputs launch nothing
 DEMO = dict(pair_pass_resident=30 * 2)
 LADDER = dict(pair_pass_symmetric=SCENE_FRAMES * 2)
-BOIDS_CELL_TICK = dict(pair_pass_symmetric=CELL_BOIDS_FRAMES + 1, boid_tick=CELL_BOIDS_FRAMES + 1)
-PRED_TICK = dict(pair_pass_resident=PRED_WARMUP + 1, prey_tick=PRED_WARMUP + 1)
+# and the neighbour build once a frame where a tick reads lists, once a
+# class list a frame on the mixed cell's per-class plan (prey, predators,
+# lights)
+BOIDS_CELL_TICK = dict(pair_pass_symmetric=CELL_BOIDS_FRAMES + 1, boid_tick=CELL_BOIDS_FRAMES + 1,
+                       neighbor_build=CELL_BOIDS_FRAMES + 1)
+PRED_TICK = dict(pair_pass_resident=PRED_WARMUP + 1, prey_tick=PRED_WARMUP + 1,
+                 neighbor_build=PRED_WARMUP + 1)
+MIXED_BUILD = dict(pair_pass_symmetric=MIXED_BUILD_FRAMES + 1, prey_tick=MIXED_BUILD_FRAMES + 1,
+                   neighbor_build=3 * (MIXED_BUILD_FRAMES + 1))
 
 CASES = (
     Case("pair_pass_resident", "demo_10k", demo_layout, 200, DEMO),
     Case("pair_pass_resident", "ladder_1m", ladder_layout, 50, LADDER),
     Case("pair_pass_resident", "boids_15k",
          lambda dev: stepped_layout(boids_engine(dev, BOIDS_N, BOIDS_WORLD, CONFIG3_SPATIAL)),
-         200, dict(pair_pass_resident=SCENE_FRAMES, boid_tick=SCENE_FRAMES)),
+         200, dict(pair_pass_resident=SCENE_FRAMES, boid_tick=SCENE_FRAMES,
+                   neighbor_build=SCENE_FRAMES)),
     Case("pair_pass_resident", "predators_15k", predators_blood_layout, 200,
          dict(pair_pass_resident=PRED_WARMUP + PRED_FRAMES + PRED_BLOOD_FRAMES,
-              prey_tick=PRED_WARMUP + PRED_FRAMES + PRED_BLOOD_FRAMES)),
+              prey_tick=PRED_WARMUP + PRED_FRAMES + PRED_BLOOD_FRAMES,
+              neighbor_build=PRED_WARMUP + PRED_FRAMES + PRED_BLOOD_FRAMES)),
     Case("pair_pass_symmetric", "ladder_1m_clamp", ladder_layout, 50, LADDER,
          (90_000.0, 40_000.0)),
     Case("pair_pass_symmetric", "demo_10k", demo_layout, 200, DEMO),
     Case("pair_pass_symmetric", "boids_102k_cell_layout", cell_layout("boids_102k"), 50,
-         dict(pair_pass_symmetric=CELL_BOIDS_FRAMES, boid_tick=CELL_BOIDS_FRAMES)),
+         dict(pair_pass_symmetric=CELL_BOIDS_FRAMES, boid_tick=CELL_BOIDS_FRAMES,
+              neighbor_build=CELL_BOIDS_FRAMES)),
     Case("pair_pass_symmetric", "mixed_1m_cell_layout", cell_layout("mixed_1m"), 50,
-         dict(pair_pass_symmetric=CELL_BOIDS_FRAMES, prey_tick=CELL_BOIDS_FRAMES)),
+         dict(pair_pass_symmetric=CELL_BOIDS_FRAMES, prey_tick=CELL_BOIDS_FRAMES,
+              neighbor_build=3 * CELL_BOIDS_FRAMES)),
     Case("pair_pass_grid", "halo_1m_slab1",
          lambda dev: halo_slab_args(halo_balls_engine(dev), 4.0, HALO_FRAMES), 50,
          dict(pair_pass_grid=HALO_FRAMES * 2 * HALO_SLABS)),
@@ -565,6 +631,9 @@ CASES = (
     Case("prey_tick", "mixed_1m_cell_gathered", gathered(mixed_cell_inputs), 20, {}),
     Case("prey_tick", "predators_15k_frame", predators_frame, 200, PRED_TICK),
     Case("prey_tick", "predators_15k_frame_gathered", gathered(predators_frame), 200, PRED_TICK),
+    Case("neighbor_build", "boids_102k_cell", boids_cell_build, 20, BOIDS_CELL_TICK),
+    Case("neighbor_build", "mixed_1m_prey", mixed_cell_build("Prey"), 3, MIXED_BUILD),
+    Case("neighbor_build", "mixed_1m_predators", mixed_cell_build("Predator"), 200, MIXED_BUILD),
 )
 
 
@@ -657,9 +726,16 @@ def compare(case, args, got, want) -> dict:
     division), with contacts in the layout; the ticks sum each row in
     another order than ``torch.sum``, so they must lie within the summing
     order's tolerance (:func:`boid_order_tolerance`,
-    :func:`prey_order_tolerance`)."""
+    :func:`prey_order_tolerance`). The neighbour build must equal its plain
+    version bit for bit in ids, d2, count and payload, with some slot
+    kept."""
     import torch
 
+    if case.kernel == "neighbor_build":
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        err = (got[1] - want[1]).abs().max().item()
+        return {"ok": same and int(want[2].sum().item()) > 0, "max_abs_err": err}
     if case.kernel in PAIR_PASSES + ("expand",):
         same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.is_floating_point()
                    else torch.equal(a, b) for a, b in zip(got, want))
